@@ -1,0 +1,322 @@
+"""Multi-scalar multiplication (Pippenger) on the card.
+
+Port of gemini_tpu/ops/msm.py.  Bucket accumulation uses the
+threshold-suffix identity instead of data-dependent scatter-adds:
+
+    sum_i d_i P_i = sum_{k=1}^{2^(c-1)} ( sum_{i: |d_i| >= k} ±P_i )
+
+With points sorted by digit, each inner sum is one prefix sum of the
+flipped sorted array at a bucket boundary, so per window the bucket
+phase is a reduce chain + a scan at the stop level + a walk-down
+(ops/ec_scan.prefix_sums_at) and a tree reduction.  Every EC add is a
+batched launch of the hand-written CUDA kernels (padd01 at level 0,
+padd elsewhere).  Digits are SIGNED (magnitude <= 2^(c-1); negative
+digits negate the point during the sort).  The final Horner combine
+over the O(W) window totals runs on the host.
+
+Scalars enter in canonical (non-Montgomery) limb form, reduced (< R);
+points as affine with infinity masks.  Small MSMs (n <= 4096) run on
+the host Pippenger only when the tensors lie on the CPU; on CUDA every
+MSM takes the kernel pipeline.  `host_max=0` forces the pipeline on
+the CPU (the tests do this, as GEMINI_TPU_HOST_MSM_MAX=0 does in
+gemini_tpu).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..curve import g1
+from ..curve.g1 import APoint, JPoint
+from ..fields import fp
+from ..fields.fp import FQ, FR
+from ..params import R as _R_FR
+from . import ec_scan
+from . import scan as scan_util
+
+LIMB_BITS = fp.LIMB_BITS
+HOST_MSM_MAX = 4096
+CHUNK_LANES = 1 << 20
+N_BITS = 255  # Fr scalars
+
+
+def plan_window(n: int):
+    """Pick (window size c, windows-per-chunk Wc) minimizing the
+    pipeline's add count with signed digits (the reference's cost model:
+    n reduce-chain adds + 2m stop-level scan + m walk-down fix-ups per
+    level + m bucket tree-reduce per window, m = 2^(c-1)); the top
+    window must absorb the recode carry (checked against R).  Unlike
+    the reference (whose Wc bounded compiled shapes), Wc then grows to
+    fill CHUNK_LANES."""
+    if n <= 32:
+        return 3, 4
+    best = None
+    for c in range(4, 21):
+        w = -(-N_BITS // c)
+        if (_R_FR >> (c * (w - 1))) + 1 > (1 << (c - 1)):
+            continue  # top window could overflow under recode carry
+        m = 1 << (c - 1)
+        levels = max(0, int(math.log2(max(n // max(m, 1), 1))))
+        per_window = n + 2 * m + m * levels + m
+        for wc in (1, 2, 3, 4, 5):
+            if wc > 1 and wc * n > 5 << 20:
+                continue
+            cost = -(-w // wc) * wc * per_window
+            if best is None or cost < best[0]:
+                best = (cost, c, wc)
+    if best is None:
+        return 8, 4
+    c, wc = best[1], best[2]
+    # Batch more windows per chunk while a chunk stays within
+    # CHUNK_LANES lanes: small MSMs then run as a few wide kernel
+    # launches instead of one narrow launch chain per window.
+    w = -(-N_BITS // c)
+    return c, max(wc, min(w, CHUNK_LANES // n))
+
+
+def extract_digits(scalars: torch.Tensor, c: int, n_bits: int = N_BITS):
+    """(L, N) canonical limbs -> (W, N) int64 window digits, W windows of
+    c bits, little-endian windows."""
+    s = scalars.to(torch.int64)
+    L = s.shape[0]
+    digits = []
+    mask = (1 << c) - 1
+    for w in range(-(-n_bits // c)):
+        limb, off = divmod(w * c, LIMB_BITS)
+        d = s[limb] >> off
+        got = LIMB_BITS - off
+        k = limb + 1
+        while got < c and k < L:  # c may span more than two limbs
+            d = d | (s[k] << got)
+            got += LIMB_BITS
+            k += 1
+        digits.append(d & mask)
+    return torch.stack(digits, dim=0)
+
+
+def extract_signed_digits(scalars: torch.Tensor, c: int,
+                          n_bits: int = N_BITS):
+    """(L, N) canonical limbs (< R) -> (mags (W, N) int64 in
+    [0, 2^(c-1)], negs (W, N) bool): d' = raw + carry; if d' > 2^(c-1)
+    emit d' - 2^c and carry 1."""
+    raw = extract_digits(scalars, c, n_bits)
+    half, full = 1 << (c - 1), 1 << c
+    mags, negs = [], []
+    carry = torch.zeros_like(raw[0])
+    for w in range(raw.shape[0]):
+        d = raw[w] + carry
+        neg = d > half
+        mags.append(torch.where(neg, full - d, d))
+        negs.append(neg)
+        carry = neg.to(torch.int64)
+    return torch.stack(mags, dim=0), torch.stack(negs, dim=0)
+
+
+def _horner_host(totals_jac, c: int, device) -> JPoint:
+    """result = sum_w 2^(c*w) * T_w, combined on the host over the
+    O(W) window totals."""
+    from ..hostcurve import g1_add, g1_double
+
+    pts = g1.decode_jacobian(JPoint(*totals_jac))
+    acc = None
+    for w in reversed(range(len(pts))):
+        if acc is not None:
+            for _ in range(c):
+                acc = g1_double(acc)
+        acc = g1_add(acc, pts[w])
+    return _jpoint_from_host(acc, device)
+
+
+def _jpoint_from_host(acc, device) -> JPoint:
+    one = FQ.ones_mont((1,), device)
+    if acc is None:
+        return JPoint(FQ.zeros((1,), device), one, FQ.zeros((1,), device))
+    ap = g1.encode_affine([acc], device)
+    return JPoint(ap.x, ap.y, one)
+
+
+def _sort_gather_proj(px, py, pinf, mags, negs, rev_bits: int = 0):
+    """Sort each window's points by digit magnitude, emitting FLIPPED
+    (descending) (x, y, mask) for the padd01 level 0 plus the ASCENDING
+    sorted digits (for the boundary positions).  One key sort: the
+    neg/inf flags ride in the key's low bits (any order within a digit
+    group is valid — the scan is a sum); the order array is flipped and
+    bit-reversed before the one coordinate gather.  Dead lanes
+    (infinity or digit 0) become the identity (0 : y : 0), y nonzero;
+    negative digits negate y."""
+    Wc, n = mags.shape
+    key = (mags << 2) | (negs.to(torch.int64) << 1) | pinf.to(torch.int64)
+    skey, order = torch.sort(key, dim=1)
+    order_f = order.flip(1)
+    skey_f = skey.flip(1)
+    if rev_bits:
+        order_f = ec_scan.partial_bitrev_last(order_f, rev_bits)
+        skey_f = ec_scan.partial_bitrev_last(skey_f, rev_bits)
+    gx = px[:, order_f]  # (24, Wc, n)
+    gy = py[:, order_f]
+    sd = skey >> 2  # ascending magnitudes
+    sneg = ((skey_f >> 1) & 1).bool()
+    ginf = (skey_f & 1).bool()
+    dead = ginf | (skey_f >> 2 == 0)
+    dev = px.device
+    x = fp.select(dead, FQ.zeros((Wc, n), dev), gx)
+    y = fp.select(sneg, fp.neg(FQ, gy), gy)
+    y = fp.select(ginf, FQ.ones_mont((Wc, n), dev), y)
+    return x, y, ~dead, sd
+
+
+def _proj_to_jacobian(x, y, z):
+    """(X : Y : Z) -> Jacobian (XZ, YZ^2, Z); inputs arrive relaxed
+    (< 2p) from the padd pipeline: the mont_mul kernel canonicalizes the
+    products, the add of zero canonicalizes z."""
+    xz = fp.mont_mul(FQ, x, z)
+    z2 = fp.mont_mul(FQ, z, z)
+    yz2 = fp.mont_mul(FQ, y, z2)
+    return xz, yz2, fp.add(FQ, z, torch.zeros_like(z))
+
+
+def _boundary_positions(sd, c: int):
+    """Flipped-prefix positions of the signed-digit bucket boundaries:
+    suffix_{mag >= k} in sorted order == prefix up to
+    n-1-searchsorted(k) in FLIPPED order, for k = 1..2^(c-1); -1 =
+    empty (identity).  One batched searchsorted over the sorted rows."""
+    Wc, n = sd.shape
+    m = 1 << (c - 1)
+    ks = torch.arange(1, m + 1, dtype=sd.dtype, device=sd.device)
+    b = torch.searchsorted(sd.contiguous(), ks.expand(Wc, m).contiguous(),
+                           side="left")
+    return (n - 1) - b
+
+
+def _window_chunk(px, py, pinf, mags, negs, c: int):
+    """One window chunk: sort by magnitude, positional prefix sums at the
+    2^(c-1) bucket boundaries, bucket tree-reduce.  Returns the chunk's
+    projective window totals, each (L, Wc)."""
+    n = mags.shape[1]
+    rb = ec_scan.bitrev_levels(n, 1 << (c - 1))
+    fx, fy, fm, sd = _sort_gather_proj(px, py, pinf, mags, negs, rb)
+    pos = _boundary_positions(sd, c)
+    bx, by, bz = ec_scan.prefix_sums_at(fx, fy, fm, pos, rev_bits=rb)
+    x, y, z = ec_scan.tree_reduce((bx, by, bz))
+    return x[..., 0], y[..., 0], z[..., 0]
+
+
+def _pad_points_scalars(points: APoint, scalars, npad: int):
+    n = points.x.shape[1]
+    if npad == n:
+        return points, scalars
+    pad = npad - n
+    dev = points.x.device
+    points = APoint(
+        torch.cat([points.x, FQ.zeros((pad,), dev)], dim=1),
+        torch.cat([points.y, FQ.zeros((pad,), dev)], dim=1),
+        torch.cat([points.inf, torch.ones((pad,), dtype=torch.bool, device=dev)]),
+    )
+    scalars = torch.cat([scalars, scalars.new_zeros((scalars.shape[0], pad))],
+                        dim=1)
+    return points, scalars
+
+
+def _run_chunks(points: APoint, mags, negs, c: int, window_chunk: int):
+    """Run the window-chunk pipeline over all windows; returns projective
+    (x, y, z) totals of shape (L, W)."""
+    W = mags.shape[0]
+    tx, ty, tz = [], [], []
+    for w0 in range(0, W, window_chunk):
+        mc = mags[w0: w0 + window_chunk]
+        nc = negs[w0: w0 + window_chunk]
+        x, y, z = _window_chunk(points.x, points.y, points.inf, mc, nc, c)
+        tx.append(x)
+        ty.append(y)
+        tz.append(z)
+    return torch.cat(tx, dim=1), torch.cat(ty, dim=1), torch.cat(tz, dim=1)
+
+
+def _host_msm_max(device, host_max: int | None) -> int:
+    """Size up to which an MSM runs on the host Pippenger: 4096 for CPU
+    tensors, 0 (never) on CUDA, or `host_max` when given."""
+    if host_max is not None:
+        return host_max
+    return HOST_MSM_MAX if device.type == "cpu" else 0
+
+
+def _msm_host(points: APoint, scalars) -> JPoint:
+    from ..hostcurve import g1_msm_pippenger
+
+    pts = g1.decode_affine(points)
+    ks = FR.decode(scalars, mont=False)
+    return _jpoint_from_host(g1_msm_pippenger(pts, ks), points.x.device)
+
+
+def msm(points: APoint, scalars, host_max: int | None = None) -> JPoint:
+    """MSM over G1: sum_i scalars[i] * points[i].
+
+    points: APoint batch (N,); scalars: (FR_LIMBS, N) canonical
+    (non-Montgomery) limbs, each < R.  Returns a JPoint of batch (1,)."""
+    n = points.x.shape[1]
+    if n <= _host_msm_max(points.x.device, host_max):
+        return _msm_host(points, scalars)
+    # Pad to a power-of-4 bucket with (infinity, 0) pairs: a no-op that
+    # keeps every scan level a power of two.
+    npad = scan_util.bucket4(n, floor=256)
+    c, window_chunk = plan_window(npad)
+    points, scalars = _pad_points_scalars(points, scalars, npad)
+    mags, negs = extract_signed_digits(scalars, c)
+    totals = _proj_to_jacobian(*_run_chunks(points, mags, negs, c,
+                                            window_chunk))
+    return _horner_host(totals, c, points.x.device)
+
+
+def msm_mont_scalars(points: APoint, scalars_mont,
+                     host_max: int | None = None) -> JPoint:
+    """MSM taking Montgomery-form Fr scalars (the prover's native form)."""
+    return msm(points, fp.from_mont(FR, scalars_mont), host_max=host_max)
+
+
+def msm_batch(points: APoint, scalars_sets, host_max: int | None = None):
+    """Many MSMs over PREFIXES of the same base array, as one pipeline:
+    set i (canonical (FR_LIMBS, n_i)) is multiplied against
+    points[:n_i].  All sets are zero-padded to a common pow-4 bucket and
+    their windows stacked on the window-chunk axis, so S small MSMs
+    share each chunk's batched kernel launches.  Returns a list of
+    JPoint results, one per set."""
+    sets = list(scalars_sets)
+    if not sets:
+        return []
+    nmax = max(s.shape[1] for s in sets)
+    navail = points.x.shape[1]
+    assert nmax <= navail, f"scalar length {nmax} exceeds base count {navail}"
+    if nmax <= _host_msm_max(points.x.device, host_max):
+        return [
+            _msm_host(APoint(points.x[:, :s.shape[1]], points.y[:, :s.shape[1]],
+                             points.inf[:s.shape[1]]), s)
+            for s in sets
+        ]
+    npad = scan_util.bucket4(max(nmax, 1), floor=256)
+    if navail >= npad:
+        points = APoint(points.x[:, :npad], points.y[:, :npad],
+                        points.inf[:npad])
+    else:
+        points, _ = _pad_points_scalars(points, sets[0][:, :0], npad)
+    c, window_chunk = plan_window(npad)
+    mags_l, negs_l = [], []
+    for s in sets:
+        if s.shape[1] < npad:
+            s = torch.cat([s, s.new_zeros((s.shape[0], npad - s.shape[1]))],
+                          dim=1)
+        m, g = extract_signed_digits(s, c)
+        mags_l.append(m)
+        negs_l.append(g)
+    W = mags_l[0].shape[0]
+    mags = torch.cat(mags_l, dim=0)  # (S*W, lanes)
+    negs = torch.cat(negs_l, dim=0)
+    totals = _proj_to_jacobian(*_run_chunks(points, mags, negs, c,
+                                            window_chunk))
+    tot = [t.cpu() for t in totals]  # one readback for all sets
+    return [
+        _horner_host(tuple(t[:, i * W:(i + 1) * W] for t in tot), c,
+                     points.x.device)
+        for i in range(len(sets))
+    ]
