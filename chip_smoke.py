@@ -3,28 +3,50 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels and the native host library from the sources in
-the checkout, then, in order:
+Builds the CUDA kernels (one nvcc per csrc/*.cu, all at once) and the
+native host library from the sources in the checkout, then, in order:
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. holds each kernel (padd, padd01, mont_mul) against its plain
-     PyTorch version on 2^16 lanes with edge lanes, bit for bit, checks
-     the group law on real points, and times both at 2^20 lanes;
-  3. runs the kernel MSM pipeline at 2^16 against the host Pippenger
-     and times it at 2^20 on bench.py's inputs;
-  4. proves the golden instance on the card and compares the proof
-     bytes with gemini_tpu's (gemini_tpu_torch/testdata/snark_golden.json);
+  2. holds each group-law kernel (padd, padd01, mont_mul, add, dbl)
+     against its plain PyTorch version, bit for bit, on 2^16 lanes and
+     on fresh 2^20-lane inputs (the MSM launches them at up to 2^19
+     lanes), edge lanes included, checks the group law on real points,
+     and times both at 2^20 lanes;
+  2b. holds the probe kernels against their plain versions at their
+     entry points' shapes (vpu_chain at vpubench's 32 x 65536 elements,
+     K = 128 and 512, uint32 and float32; copy_add at mmbench's 24 x
+     2^16 limbs), then runs the vpubench and mmbench entry points: the
+     measured int32 multiply-add rate is the second denominator of
+     every operations bound, and mmbench gives the cost of one launch;
+     then the addbench and coreops entry points at their defaults;
+  2c. drives the group API on the card: scalar_mul of 2^12 points by
+     255-bit scalars and add_mixed, against the host;
+  3. runs the kernel MSM pipeline at 2^16 against the host Pippenger and
+     times it at 2^20 on bench.py's inputs, in the projective and in the
+     Jacobian configuration (GEMINI_TPU_PROJ=0);
+  4. proves the golden instance on the card in both configurations and
+     compares the proof bytes with gemini_tpu's
+     (gemini_tpu_torch/testdata/snark_golden.json);
   5. proves and verifies the examples/snark.py -i 18 --time-prover
      instance (SRS built on the card), rejects a tampered proof, and
-     shows that the prove went through every kernel;
-  6. prints one JSON line per kernel table, the card line, and as the
+     shows that the prove went through padd, padd01 and mont_mul;
+  5b. does the same under GEMINI_TPU_PROJ=0 and shows that the SRS and
+     the prove went through the Jacobian add kernel and not padd/padd01;
+  6. prints the kernel table as one JSON line, the card line, and as the
      last line {"ok": true, "device": {...}}.
+
+Each kernel's launch count is read from its own path, with every count
+set to 0 just before the path runs: padd, padd01, mont_mul from the
+projective prove (5), add from the Jacobian prove (5b), dbl from the
+group API (2c), vpu_chain from vpubench, copy_add from mmbench (2b).
 
 Any failure raises and the script exits non-zero; without a CUDA device
 it exits non-zero before printing a result.  Tolerance everywhere:
-exact (integer arithmetic).
+exact (integer arithmetic), except vpu_chain on float32, whose plain
+version rounds each step from float64 (relative error stated, < 1e-6).
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -38,17 +60,30 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM
 # 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s = 128 FMA lanes
-# per SM.  An SM has 64 int32 lanes, so 32-bit integer multiply-add runs
-# at a quarter of the float32 FLOP rate; a 32x32->64 word product takes
-# two IMADs (low and high word).
+# per SM.  An SM has 64 int32 lanes, so the data-sheet figure for 32-bit
+# integer multiply-add is a quarter of the float32 FLOP rate.  Phase 2b
+# measures the IMAD rate on the card (vpubench); every operations bound
+# is given under both.  A 32x32->64 word product takes two IMADs (low
+# and high word); a canonical product (mm) is 2 * 144 word products.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
-WORD_PRODUCTS = {"padd": 21 * 144, "padd01": 15 * 144, "mont_mul": 2 * 144}
-SOURCE = "gemini_tpu_torch/csrc/g1_kernels.cu"
+WORD_PRODUCTS = {"padd": 21 * 144, "padd01": 15 * 144, "mont_mul": 2 * 144,
+                 "add": 23 * 288, "dbl": 7 * 288}
+COORDS_IN_OUT = {"padd": (6, 3), "padd01": (4, 3), "mont_mul": (2, 1),
+                 "add": (6, 3), "dbl": (3, 3)}
+G1_SOURCE = "gemini_tpu_torch/csrc/g1_kernels.cu"
+PROBE_SOURCE = "gemini_tpu_torch/csrc/probes.cu"
+KERNELS = ("padd", "padd01", "mont_mul", "add", "dbl", "vpu_chain", "copy_add")
+SOURCES = {k: G1_SOURCE for k in KERNELS[:5]}
+SOURCES.update(vpu_chain=PROBE_SOURCE, copy_add=PROBE_SOURCE)
 REPLACES = {
     "padd": "gemini_tpu/curve/pallas_g1.py:616",
     "padd01": "gemini_tpu/curve/pallas_g1.py:624",
     "mont_mul": "gemini_tpu/curve/pallas_g1.py:612",
+    "add": "gemini_tpu/curve/pallas_g1.py:596",
+    "dbl": "gemini_tpu/curve/pallas_g1.py:604",
+    "vpu_chain": "benches/vpubench.py:31",
+    "copy_add": "benches/mmbench.py:31",
 }
 
 
@@ -63,26 +98,10 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
 def build_all():
-    """nvcc for the kernels and g++ for the native host libraries, started
-    together."""
-    from gemini_tpu_torch import native
-    from gemini_tpu_torch.curve import g1_kernels
+    """nvcc for each kernel source and g++ for the native host libraries,
+    all started together."""
+    from gemini_tpu_torch import cuda_lib, native
     from gemini_tpu_torch.native import bls
 
     errs = []
@@ -97,11 +116,11 @@ def build_all():
     t0 = time.time()
     th = threading.Thread(target=host)
     th.start()
-    g1_kernels.build(verbose=True)
+    cuda_lib.build(verbose=True)
     th.join()
     if errs:
         raise RuntimeError("; ".join(errs))
-    log(f"build: {time.time() - t0:.2f} s (nvcc + g++ in parallel)")
+    log(f"build: {time.time() - t0:.2f} s (nvcc per source + g++ in parallel)")
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +135,12 @@ def kernel_inputs(n: int, seed: int):
     """Random lanes plus edge lanes: P = Q (the same and another
     projective representative), P = -Q, the identity on either or both
     sides, and coordinates in [p, 2p); padd01 also gets every mask
-    combination.  Returns (padd ins, padd01 ins, mont_mul ins, edge list
-    of (lane, host sum))."""
+    combination.  The Jacobian add and dbl get canonical lanes (< p):
+    random coordinates, and edge lanes P + Q, P = Q (one and two
+    representatives), P = -Q and the identity (z = 0) on either or both
+    sides, real points at random z.  Returns (padd ins, padd01 ins,
+    mont_mul ins, padd edges, add/dbl ins, add edges, dbl edges); an edge
+    list holds (lane, host result)."""
     import numpy as np
     import torch
 
@@ -182,6 +205,30 @@ def kernel_inputs(n: int, seed: int):
             lane += 1
     ax1[:, m1 == 0] = 0  # dead lanes are (0 : y : 0)
     ax2[:, m2 == 0] = 0
+
+    def jac(P):  # random Jacobian representative (x z^2, y z^3, z), or z = 0
+        if P is None:
+            return (mont(rnd.randrange(Q)), mont(rnd.randrange(Q)), 0)
+        z = rnd.randrange(1, Q)
+        return (mont(P[0] * z * z % Q), mont(P[1] * pow(z, 3, Q) % Q), mont(z))
+
+    jin = [below(0x1A01) for _ in range(6)]  # canonical: < p
+    add_edges, dbl_edges = [], []
+    lane = 0
+    pts += [g1_mul(g1_generator(), k) for k in range(1, 9)]  # small multiples
+    for k, P in enumerate(pts):
+        Qp = pts[(k + 5) % len(pts)]
+        negP = (P[0], Q - P[1])
+        for A, B, one_rep in ((P, Qp, False), (P, P, True), (P, P, False),
+                              (P, negP, False), (None, P, False),
+                              (P, None, False), (None, None, False)):
+            a = jac(A)
+            b = a if one_rep else jac(B)
+            for arr, v in zip(jin, (*a, *b)):
+                put(arr, lane, v)
+            add_edges.append((lane, g1_add(A, B)))
+            dbl_edges.append((lane, g1_add(A, A)))
+            lane += 1
     a, b = below(0x1A01), below(0x1A01)  # < p
     for i, v in enumerate((0, 1, Q - 1, FQ.mont_r)):
         put(a, i, v)
@@ -192,81 +239,220 @@ def kernel_inputs(n: int, seed: int):
 
     return ([t(v) for v in (x1, y1, z1, x2, y2, z2)],
             [t(ax1), t(ay1), t(m1), t(ax2), t(ay2), t(m2)],
-            [t(a), t(b)], edges)
+            [t(a), t(b)], edges, [t(v) for v in jin], add_edges, dbl_edges)
 
 
-def check_group_law(outs, edges, label):
-    """The projective outputs of the edge lanes, normalized on the host,
-    must equal the host group law (relaxed limbs < 2p decode to the
-    right residue)."""
+def check_group_law(outs, edges, label, jacobian=False):
+    """The projective (or Jacobian) outputs of the edge lanes, normalized
+    on the host, must equal the host group law (relaxed limbs < 2p
+    decode to the right residue)."""
     from gemini_tpu_torch.fields.fp import FQ
     from gemini_tpu_torch.params import Q
 
     lanes = [lane for lane, _ in edges]
     X, Y, Z = (FQ.decode(o[:, lanes].cpu().numpy()) for o in outs)
     for (lane, want), x, y, z in zip(edges, X, Y, Z):
-        got = None if z == 0 else (x * pow(z, -1, Q) % Q, y * pow(z, -1, Q) % Q)
+        zi = pow(z, -1, Q) if z else 0
+        sx, sy = (zi * zi % Q, zi * zi * zi % Q) if jacobian else (zi, zi)
+        got = None if z == 0 else (x * sx % Q, y * sy % Q)
         if got != want:
             raise AssertionError(f"{label}: group law wrong on lane {lane}")
 
 
 def phase_kernels(results):
+    """Each group-law kernel against its plain version, bit for bit, on
+    2^16 lanes and on fresh 2^20-lane inputs (the order of the MSM's
+    largest launches, up to 2^19 lanes), edge lanes included, with the
+    group law checked on the edge lanes; then both timed at 2^20."""
     import torch
 
+    from gemini_tpu_torch.benches.timing import event_ms
     from gemini_tpu_torch.curve import g1_kernels as gk
 
-    n = 1 << 16
-    padd_in, padd01_in, mm_in, edges = kernel_inputs(n, seed=20261016)
-    cases = {
-        "padd": (lambda ins: gk.padd(ins[:3], ins[3:]), gk.padd_plain, padd_in),
-        "padd01": (lambda ins: gk.padd01((ins[0], ins[1], ins[2]),
-                                         (ins[3], ins[4], ins[5])),
-                   gk.padd01_plain, padd01_in),
-        "mont_mul": (lambda ins: (gk.mont_mul(*ins),),
-                     lambda a, b: (gk.mont_mul_plain(a, b),), mm_in),
-    }
-    for name, (kern, plain, ins) in cases.items():
-        got = kern(ins)
-        want = plain(*ins)
-        torch.cuda.synchronize()
-        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                  for g, w in zip(got, want))
-        exact = all(torch.equal(g, w) for g, w in zip(got, want))
-        if not exact:
-            raise AssertionError(f"{name}: kernel differs from plain version "
-                                 f"(max abs limb error {err})")
-        if name in ("padd", "padd01"):
-            check_group_law(got, edges, name)
-        results[name] = {"max_abs_err": err, "bit_exact": exact}
-        log(f"kernel {name}: bit-exact against plain on {n} lanes "
-            f"(edge lanes included), group law checked")
+    for n, seed in ((1 << 16, 20261016), (1 << 20, 20261017)):
+        (padd_in, padd01_in, mm_in, edges, jac_in, add_edges,
+         dbl_edges) = kernel_inputs(n, seed=seed)
+        cases = {
+            "padd": (lambda ins: gk.padd(ins[:3], ins[3:]), gk.padd_plain, padd_in),
+            "padd01": (lambda ins: gk.padd01((ins[0], ins[1], ins[2]),
+                                             (ins[3], ins[4], ins[5])),
+                       gk.padd01_plain, padd01_in),
+            "mont_mul": (lambda ins: (gk.mont_mul(*ins),),
+                         lambda a, b: (gk.mont_mul_plain(a, b),), mm_in),
+            "add": (lambda ins: gk.add(ins[:3], ins[3:]), gk.add_plain, jac_in),
+            "dbl": (lambda ins: gk.double(ins),
+                    lambda x, y, z: gk.double_plain(x, y, z), jac_in[:3]),
+        }
+        group_law = {"padd": (edges, False), "padd01": (edges, False),
+                     "add": (add_edges, True), "dbl": (dbl_edges, True)}
+        for name, (kern, plain, ins) in cases.items():
+            got = kern(ins)
+            want = plain(*ins)
+            torch.cuda.synchronize()
+            err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                      for g, w in zip(got, want))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{name}: kernel differs from plain version "
+                                     f"on {n} lanes (max abs limb error {err})")
+            if name in group_law:
+                law_edges, jacobian = group_law[name]
+                check_group_law(got, law_edges, name, jacobian=jacobian)
+            r = results.setdefault(name, {"max_abs_err": 0, "bit_exact": True})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            log(f"kernel {name}: bit-exact against plain on {n} lanes (edge lanes "
+                f"included){', group law checked' if name in group_law else ''}")
+            del got, want
 
-    # timing at 2^20 lanes
-    n = 1 << 20
-    reps = n // (1 << 16)
-    big = {k: [t.repeat(1, reps) if t.dim() == 2 else t.repeat(reps)
-               for t in v[2]] for k, v in cases.items()}
-    for name, (kern, plain, _) in cases.items():
-        ins = big[name]
-        ms = cuda_ms(lambda: kern(ins), 20)
-        plain_ms = cuda_ms(lambda: plain(*ins), 2)
-        wp = WORD_PRODUCTS[name]
-        coords_in = {"padd": 6, "padd01": 4, "mont_mul": 2}[name]
-        coords_out = 1 if name == "mont_mul" else 3
-        nbytes = n * 96 * (coords_in + coords_out) + (8 * n if name == "padd01" else 0)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n * wp * 2 / IMAD_PER_S * 1e3
-        results[name].update(
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            lanes=n)
-        log(f"kernel {name} at 2^20 lanes: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
-            f"bound {max(t_bytes, t_ops):.4f} ms)")
+    # timing at 2^20 lanes, on the inputs just compared
+    for name, (kern, plain, ins) in cases.items():
+        ms = event_ms(lambda: kern(ins), 20)
+        plain_ms = event_ms(lambda: plain(*ins), 2)
+        c_in, c_out = COORDS_IN_OUT[name]
+        nbytes = n * 96 * (c_in + c_out) + (8 * n if name == "padd01" else 0)
+        results[name].update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                             bytes=nbytes, imads=n * WORD_PRODUCTS[name] * 2,
+                             lanes=n, source=G1_SOURCE)
+        log(f"kernel {name} at 2^20 lanes: {ms:.4f} ms (plain {plain_ms:.2f} ms)")
+
+
+def phase_probes(results):
+    """2b: the probe kernels against their plain versions, then the
+    vpubench and mmbench entry points at their defaults.  Returns the
+    measured rates."""
+    import torch
+
+    from gemini_tpu_torch.benches import addbench, coreops, mmbench, probes, vpubench
+    from gemini_tpu_torch.benches.timing import event_ms
+
+    # vpu_chain against its plain version at vpubench's own inputs
+    # (ROWS x TILE * GRID elements, K / 4 and K), for both types
+    k, rows, n = vpubench.K, vpubench.ROWS, vpubench.TILE * vpubench.GRID
+    vpu_err, frel = 0, 0.0
+    for dtype in ("uint32", "float32"):
+        a, b = vpubench.inputs(dtype, rows, n, "cuda")
+        for kk in (k // 4, k):
+            got, want = probes.vpu_chain(a, b, kk), probes.vpu_chain_plain(a, b, kk)
+            if dtype == "float32":
+                frel = max(frel, float(((got - want).abs() / want.abs()).max()))
+                continue
+            vpu_err = max(vpu_err, int((got.to(torch.int64)
+                                        - want.to(torch.int64)).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"vpu_chain (uint32, K = {kk}) differs from "
+                                     f"its plain version (max abs error {vpu_err})")
+    if not frel < 1e-6:
+        raise AssertionError(f"vpu_chain (float32) off its plain version: {frel}")
+    # copy_add at mmbench's shape, (24, 2^MM_LOGN) limbs
+    ca = probes.to_i32(torch.randint(
+        0, 1 << 32, (24, 1 << mmbench.LOGN), dtype=torch.int64, device="cuda",
+        generator=torch.Generator("cuda").manual_seed(6)))
+    cb = ca.flip(1).contiguous()
+    cgot, cwant = probes.copy_add(ca, cb), probes.copy_add_plain(ca, cb)
+    if not torch.equal(cgot, cwant):
+        raise AssertionError("copy_add differs from its plain version")
+    log(f"probes: vpu_chain uint32 bit-exact against plain at {rows} x {n}, "
+        f"K = {k // 4} and {k}; float32 max relative error {frel:.3g}; "
+        f"copy_add bit-exact at 24 x {1 << mmbench.LOGN}")
+
+    # the entry points at their defaults, each counted on its own
+    probes.reset_launches()
+    vpu = vpubench.main()
+    vpu_launches = probes.LAUNCHES["vpu_chain"]
+    fl = vpubench.measure(dtype="float32")
+    probes.reset_launches()
+    mm = mmbench.main()
+    copy_launches = probes.LAUNCHES["copy_add"]
+    if vpu_launches == 0 or copy_launches == 0:
+        raise AssertionError("the bench entry points launched no probe kernel")
+    addbench.main(argv=[])
+    coreops.main(argv=[])
+    imad_per_s = vpu["lane_ops_per_s"] / 2
+    rates = {"int32_lane_ops_per_s": vpu["lane_ops_per_s"],
+             "imad_per_s": imad_per_s,
+             "float32_flop_per_s": fl["lane_ops_per_s"],
+             "copy_add_us_per_launch": mm["copy_add"]["us_per_launch"],
+             "copy_add_ns_per_lane": mm["copy_add"]["ns_per_lane"],
+             "mont_mul_us_per_launch": mm["mont_mul"]["us_per_launch"],
+             "mont_mul_ns_per_lane": mm["mont_mul"]["ns_per_lane"]}
+    log(json.dumps({"measured_rates": rates}))
+
+    # table rows at the entry points' shapes
+    a, b = vpubench.inputs("uint32", rows, n, "cuda")
+    results["vpu_chain"] = {
+        "max_abs_err": vpu_err, "bit_exact": True, "float32_max_rel_err": frel,
+        "launches": vpu_launches, "ms": vpu["t_long_s"] * 1e3,
+        "plain_ms": event_ms(lambda: probes.vpu_chain_plain(a, b, k), 1),
+        "library_ms": None, "bytes": 3 * 4 * rows * n, "imads": k * rows * n,
+        "lanes": rows * n, "source": PROBE_SOURCE}
+    results["copy_add"] = {
+        "max_abs_err": int((cgot.to(torch.int64) - cwant.to(torch.int64)).abs().max()),
+        "bit_exact": True, "launches": copy_launches,
+        "ms": event_ms(lambda: probes.copy_add(ca, cb), 50),
+        "plain_ms": event_ms(lambda: probes.copy_add_plain(ca, cb), 10),
+        "library_ms": event_ms(lambda: torch.add(ca, cb), 50),
+        "bytes": 3 * 96 * ca.shape[1], "imads": 0, "lanes": ca.shape[1],
+        "source": PROBE_SOURCE}
+    return rates
+
+
+def phase_group_api(results):
+    """2c: scalar_mul and add_mixed on the card against the host."""
+    import numpy as np
+    import torch
+
+    from gemini_tpu_torch.curve import g1
+    from gemini_tpu_torch.curve import g1_kernels as gk
+    from gemini_tpu_torch.hostcurve import g1_add, g1_mul
+    from gemini_tpu_torch.params import R
+    from gemini_tpu_torch.refimpl import g1_generator
+
+    rnd = random.Random(0xD0B1)
+    n = 1 << 12
+    base = [g1_mul(g1_generator(), rnd.randrange(1, R)) for _ in range(64)]
+    pts = [base[i % 64] if i % 97 else None for i in range(n)]
+    ks = [rnd.randrange(R) for _ in range(n)]
+    ks[:3] = [0, 1, R - 1]
+    bits = np.array([[(k >> i) & 1 for k in ks] for i in range(255)], dtype=bool)
+    p = g1.from_affine(g1.encode_affine(pts, "cuda"))
+    gk.reset_launches()
+    t0 = time.time()
+    out = g1.scalar_mul(p, torch.from_numpy(bits).cuda())
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(gk.LAUNCHES)
+    if g1.decode_jacobian(out) != [g1_mul(P, k) for P, k in zip(pts, ks)]:
+        raise AssertionError("scalar_mul on the card differs from host g1_mul")
+    qs = [base[(i * 7) % 64] if i % 5 else None for i in range(n)]
+    qs[3] = pts[3]  # P + P through the doubling select
+    mixed = g1.add_mixed(out, g1.encode_affine(qs, "cuda"))
+    host = [g1_mul(P, k) for P, k in zip(pts, ks)]
+    if g1.decode_jacobian(mixed) != [g1_add(a, b) for a, b in zip(host, qs)]:
+        raise AssertionError("add_mixed on the card differs from the host")
+    if launches["dbl"] == 0 or launches["add"] == 0:
+        raise AssertionError(f"scalar_mul launched no dbl/add kernel: {launches}")
+    results["dbl"]["launches"] = launches["dbl"]
+    log(json.dumps({"scalar_mul_2^12_x_255_bits_s": dt, "launches": launches,
+                    "host_checked": True, "add_mixed_host_checked": True}))
 
 
 # ---------------------------------------------------------------------------
 # Phase 3: MSM
 # ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def jacobian_config():
+    """GEMINI_TPU_PROJ=0 (the MSM and SRS through the Jacobian add
+    kernel) inside the block; the variable is restored after it."""
+    old = os.environ.get("GEMINI_TPU_PROJ")
+    os.environ["GEMINI_TPU_PROJ"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("GEMINI_TPU_PROJ")
+        else:
+            os.environ["GEMINI_TPU_PROJ"] = old
 
 
 def phase_msm():
@@ -297,30 +483,40 @@ def phase_msm():
 
     n = 1 << 16
     pts, sc, s_np = inputs(n)
-    got = g1.decode_jacobian(msm(pts, sc))[0]
     ks = [sum(int(s_np[i, j]) << (16 * i) for i in range(FR.n_limbs)) for j in range(n)]
     t0 = time.time()
     want = g1_msm([host_pts[j % 512] for j in range(n)], ks)
     host_s = time.time() - t0
-    if got != want:
+    if g1.decode_jacobian(msm(pts, sc))[0] != want:
         raise AssertionError("MSM 2^16: kernel pipeline differs from host Pippenger")
-    log(f"msm 2^16: kernel pipeline == host Pippenger (host {host_s:.2f} s)")
+    with jacobian_config():
+        if g1.decode_jacobian(msm(pts, sc))[0] != want:
+            raise AssertionError("MSM 2^16, GEMINI_TPU_PROJ=0: the Jacobian "
+                                 "pipeline differs from host Pippenger")
+    log(f"msm 2^16: kernel pipeline == host Pippenger, projective and Jacobian "
+        f"(host {host_s:.2f} s)")
 
     n = 1 << 20
     pts, sc, _ = inputs(n)
-    t0 = time.time()
-    out = msm(pts, sc)
-    torch.cuda.synchronize()
-    warm = time.time() - t0
-    best = float("inf")
-    for _ in range(3):
+
+    def timed(config):
         t0 = time.time()
         out = msm(pts, sc)
         torch.cuda.synchronize()
-        best = min(best, time.time() - t0)
-    g1.decode_jacobian(out)
-    log(json.dumps({"metric": "msm_g1_points_per_s_2^20", "value": n / best,
-                    "best_s": best, "first_s": warm}))
+        warm = time.time() - t0
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.time()
+            out = msm(pts, sc)
+            torch.cuda.synchronize()
+            best = min(best, time.time() - t0)
+        g1.decode_jacobian(out)
+        log(json.dumps({"metric": "msm_g1_points_per_s_2^20", "config": config,
+                        "value": n / best, "best_s": best, "first_s": warm}))
+
+    timed("projective")
+    with jacobian_config():
+        timed("jacobian")
 
 
 # ---------------------------------------------------------------------------
@@ -337,18 +533,31 @@ def phase_golden():
     with open(os.path.join(HERE, "gemini_tpu_torch", "testdata",
                            "snark_golden.json")) as f:
         golden = json.load(f)
-    r1 = random_r1cs(random.Random(golden["r1cs_seed"]), golden["n"], device="cuda")
-    ck = CommitterKey.new(max_degree=golden["max_degree"],
-                          max_eval_points=golden["max_eval_points"],
-                          seed=golden["srs_seed"], device="cuda")
-    proof = Proof.new_time(r1, ck)
-    if snark_proof_bytes(proof).hex() != golden["proof_hex"]:
-        raise AssertionError("golden proof bytes differ from gemini_tpu's")
-    proof.verify(r1, VerifierKey.from_committer_key(ck))
-    log("golden instance: proof bytes equal gemini_tpu's, proof verifies")
+
+    def prove(config):
+        r1 = random_r1cs(random.Random(golden["r1cs_seed"]), golden["n"],
+                         device="cuda")
+        ck = CommitterKey.new(max_degree=golden["max_degree"],
+                              max_eval_points=golden["max_eval_points"],
+                              seed=golden["srs_seed"], device="cuda")
+        proof = Proof.new_time(r1, ck)
+        if snark_proof_bytes(proof).hex() != golden["proof_hex"]:
+            raise AssertionError(f"golden proof bytes ({config}) differ from "
+                                 "gemini_tpu's")
+        proof.verify(r1, VerifierKey.from_committer_key(ck))
+        log(f"golden instance ({config}): proof bytes equal gemini_tpu's, "
+            "proof verifies")
+
+    prove("projective")
+    with jacobian_config():
+        prove("jacobian")
 
 
-def phase_full(results):
+def phase_full(results, jacobian: bool):
+    """The 2^18 instance: SRS on the card, prove, verify, tamper.  The
+    projective run must launch padd, padd01 and mont_mul; the Jacobian
+    run (GEMINI_TPU_PROJ=0) must launch add, and no padd or padd01, in
+    the SRS and in the prove."""
     import torch
 
     from gemini_tpu_torch.curve import g1_kernels as gk
@@ -358,14 +567,17 @@ def phase_full(results):
     from gemini_tpu_torch.serialize import snark_proof_bytes
     from gemini_tpu_torch.snark import Proof, SnarkVerificationError
 
+    config = "jacobian" if jacobian else "projective"
     logn = 18
     n = 1 << logn
+    gk.reset_launches()
     t0 = time.time()
     r1cs = dummy_r1cs(random.Random(0), n, device="cuda")
     ck = CommitterKey.new(max_degree=n, max_eval_points=3, seed=0, device="cuda")
     vk = VerifierKey.from_committer_key(ck)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
+    setup_launches = dict(gk.LAUNCHES)
 
     gk.reset_launches()
     os.environ["GEMINI_TPU_TRACE"] = "1"
@@ -374,14 +586,21 @@ def phase_full(results):
     torch.cuda.synchronize()
     prove_s = time.time() - t0
     os.environ.pop("GEMINI_TPU_TRACE")
+    launches = dict(gk.LAUNCHES)
     t0 = time.time()
     proof.verify(r1cs, vk)
     verify_s = time.time() - t0
-    launches = dict(gk.LAUNCHES)
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"the 2^{logn} prove launched no {name} kernel")
-        results[name]["launches"] = count
+    if jacobian:
+        for where, counts in (("SRS", setup_launches), ("prove", launches)):
+            if counts["add"] == 0 or counts["padd"] or counts["padd01"]:
+                raise AssertionError(f"GEMINI_TPU_PROJ=0 2^{logn} {where} did not "
+                                     f"run on the add kernel alone: {counts}")
+        results["add"]["launches"] = launches["add"]
+    else:
+        for name in ("padd", "padd01", "mont_mul"):
+            if launches[name] == 0:
+                raise AssertionError(f"the 2^{logn} prove launched no {name} kernel")
+            results[name]["launches"] = launches[name]
 
     bad = copy.deepcopy(proof)
     bad.zc_alpha = (bad.zc_alpha + 1) % R
@@ -391,10 +610,36 @@ def phase_full(results):
         pass
     else:
         raise AssertionError("tampered proof accepted")
-    log(json.dumps({"snark_time_prover_logn": logn, "setup_s": setup_s,
-                    "prove_s": prove_s, "verify_s": verify_s,
+    log(json.dumps({"snark_time_prover_logn": logn, "config": config,
+                    "setup_s": setup_s, "prove_s": prove_s, "verify_s": verify_s,
                     "proof_bytes": len(snark_proof_bytes(proof)),
-                    "launches": launches, "tampered_rejected": True}))
+                    "setup_launches": setup_launches, "launches": launches,
+                    "tampered_rejected": True}))
+
+
+def kernel_rows(results, rates):
+    """The kernel table: every kernel with its bound under the data
+    sheet's IMAD rate and under the rate vpubench measured."""
+    rows = []
+    for name in KERNELS:
+        r = results[name]
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["imads"] / IMAD_PER_S * 1e3
+        t_ops_meas = r["imads"] / rates["imad_per_s"] * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": r["source"],
+            "replaces": REPLACES[name], "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": r["library_ms"],
+            "bound_ms_measured_rate": max(t_bytes, t_ops_meas),
+            "bound_by_measured_rate": "bytes" if t_bytes >= t_ops_meas else "operations",
+            "bit_exact": r["bit_exact"], "lanes": r["lanes"],
+        })
+        if "float32_max_rel_err" in r:
+            rows[-1]["float32_max_rel_err"] = r["float32_max_rel_err"]
+    return rows
 
 
 def main() -> int:
@@ -412,22 +657,15 @@ def main() -> int:
     log(card)
     results = {}
     phase_kernels(results)
+    rates = phase_probes(results)
+    phase_group_api(results)
     phase_msm()
     phase_golden()
-    phase_full(results)
-    kernels = []
-    for name in ("padd", "padd01", "mont_mul"):
-        r = results[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": r["launches"],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-            "bit_exact": r["bit_exact"], "lanes": r["lanes"],
-        })
+    phase_full(results, jacobian=False)
+    with jacobian_config():
+        phase_full(results, jacobian=True)
     log(f"total: {time.time() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernel_rows(results, rates)}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@
 //   radd     a + b, minus 2p when the sum is >= 2p (_F.radd)
 //   rsub     a - b, plus 2p on a borrow            (_F.rsub)
 //   mm       redc(a*b) reduced into [0, p)         (_F.mm)
+//   fadd, fdbl, fsub, is_zero: the canonical ops (_F.fadd/fdbl/fsub)
 // All sums are taken mod 2^384, dropping carries off the top exactly
 // where the reference drops them.
 #pragma once
@@ -219,6 +220,43 @@ __device__ __forceinline__ F mm(const F& a, const F& b) {
   u32 br;
   F d = sub_raw(r.w, P, br);
   return select(br != 0, r, d);
+}
+
+// Canonical domain (inputs < p, outputs < p): the Jacobian group law's
+// field ops, with the integer semantics of `_F.fadd` / `_F.fsub` for
+// any 384-bit input:
+//   fadd     s = a + b mod 2^384, minus p when s >= p or the sum carried out
+//   fdbl     fadd(a, a)
+//   fsub     d = a - b mod 2^384, plus p (mod 2^384) on a borrow
+//   is_zero  every word 0
+__device__ __forceinline__ F fadd(const F& a, const F& b) {
+  F s;
+  u64 c = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    u64 t = (u64)a.w[k] + b.w[k] + c;
+    s.w[k] = (u32)t;
+    c = t >> 32;
+  }
+  u32 br;
+  F d = sub_raw(s.w, P, br);
+  return select(br == 0 || c != 0, d, s);
+}
+
+__device__ __forceinline__ F fdbl(const F& a) { return fadd(a, a); }
+
+__device__ __forceinline__ F fsub(const F& a, const F& b) {
+  u32 br;
+  F d = sub_raw(a.w, b.w, br);
+  F f = add_raw(d, P);
+  return select(br != 0, f, d);
+}
+
+__device__ __forceinline__ bool is_zero(const F& a) {
+  u32 acc = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) acc |= a.w[k];
+  return acc == 0;
 }
 
 }  // namespace fq

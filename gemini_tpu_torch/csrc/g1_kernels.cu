@@ -1,5 +1,6 @@
 // Hand-written Hopper kernels for the G1 group law and the Fq Montgomery
-// product: the port of the three Pallas kernels on the SNARK's main path.
+// product: the port of the five Pallas kernels of
+// gemini_tpu/curve/pallas_g1.py.
 //
 //   g1_padd      replaces gemini_tpu/curve/pallas_g1.py `_padd_kernel`
 //                (complete RCB projective add, Renes-Costello-Batina
@@ -9,6 +10,12 @@
 //                with z in {0, 1} given as masks; 9 products).
 //   g1_mont_mul  replaces `_mm_kernel` (canonical a*b*2^-384 mod p), the
 //                core the other two share.
+//   g1_add       replaces `_add_kernel` (complete Jacobian add-2007-bl,
+//                16 canonical products, with the dbl-2009-l result (7
+//                more) selected where h = r = 0, then the identity
+//                selects on z1 = 0 and z2 = 0, in that order).
+//   g1_dbl       replaces `_dbl_kernel` (Jacobian dbl-2009-l, 7
+//                canonical products).
 //
 // Layout: every coordinate is a (24, n) int32 tensor of 16-bit limbs,
 // masks are (n,) int32 (nonzero = live).  One thread per lane; limbs
@@ -25,6 +32,16 @@
 // products with 64-bit accumulators, and selects instead of branches, so
 // warps never diverge on identity or doubling lanes.  Karatsuba, wgmma
 // or batched-affine adds are later work.
+//
+// g1_add and g1_dbl work in the canonical domain ([0, p), fq::mm and
+// fq::fadd/fsub/fdbl), so any correct implementation of the same
+// formulas gives the same limbs.  A canonical product is 2 * 144 word
+// products, so g1_add issues 23 * 288 (about 2.2x a padd: it computes
+// the doubling of p beside the add for the P = Q select) and g1_dbl
+// 7 * 288.  At 2^20 lanes their operations bounds (about 0.83 and
+// 0.25 ms at the data sheet's IMAD rate) lie above their bytes bounds
+// (864 and 576 bytes per lane: 0.27 and 0.18 ms).  g1_add keeps both
+// results live until the selects, so it needs more registers than padd.
 
 #include <cuda_runtime.h>
 
@@ -105,6 +122,82 @@ __global__ void __launch_bounds__(kThreads)
   fq::store(oz, n, j, fq::rmm_add(z3, t4, t0, t3));
 }
 
+// _dbl_core: dbl-2009-l.  Maps the identity (z = 0) to z3 = 0.
+__device__ __forceinline__ void dbl_core(const F& x, const F& y, const F& z,
+                                         F& x3, F& y3, F& z3) {
+  F a = fq::mm(x, x);
+  F b = fq::mm(y, y);
+  F c = fq::mm(b, b);
+  F xb = fq::fadd(x, b);
+  F d = fq::fdbl(fq::fsub(fq::mm(xb, xb), fq::fadd(a, c)));
+  F e = fq::fadd(fq::fdbl(a), a);
+  F f = fq::mm(e, e);
+  x3 = fq::fsub(f, fq::fdbl(d));
+  F c8 = fq::fdbl(fq::fdbl(fq::fdbl(c)));
+  y3 = fq::fsub(fq::mm(e, fq::fsub(d, x3)), c8);
+  z3 = fq::fdbl(fq::mm(y, z));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    dbl_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+               const int32_t* __restrict__ pz, int32_t* __restrict__ ox,
+               int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
+  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  F x3, y3, z3;
+  dbl_core(fq::load(px, n, j), fq::load(py, n, j), fq::load(pz, n, j), x3, y3, z3);
+  fq::store(ox, n, j, x3);
+  fq::store(oy, n, j, y3);
+  fq::store(oz, n, j, z3);
+}
+
+// _add_core: add-2007-bl, then the doubling where h = r = 0 (P = Q),
+// then p = O -> q, then q = O -> p (both O: p).
+__global__ void __launch_bounds__(kThreads)
+    add_kernel(const int32_t* __restrict__ px1, const int32_t* __restrict__ py1,
+               const int32_t* __restrict__ pz1, const int32_t* __restrict__ px2,
+               const int32_t* __restrict__ py2, const int32_t* __restrict__ pz2,
+               int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+               int32_t* __restrict__ oz, long long n) {
+  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const F x1 = fq::load(px1, n, j), y1 = fq::load(py1, n, j), z1 = fq::load(pz1, n, j);
+  const F x2 = fq::load(px2, n, j), y2 = fq::load(py2, n, j), z2 = fq::load(pz2, n, j);
+  F z1z1 = fq::mm(z1, z1);
+  F z2z2 = fq::mm(z2, z2);
+  F u1 = fq::mm(x1, z2z2);
+  F u2 = fq::mm(x2, z1z1);
+  F s1 = fq::mm(fq::mm(y1, z2), z2z2);
+  F s2 = fq::mm(fq::mm(y2, z1), z1z1);
+  F h = fq::fsub(u2, u1);
+  F h2 = fq::fdbl(h);
+  F i = fq::mm(h2, h2);
+  F jj = fq::mm(h, i);
+  F r = fq::fdbl(fq::fsub(s2, s1));
+  F v = fq::mm(u1, i);
+  F x3 = fq::fsub(fq::fsub(fq::mm(r, r), jj), fq::fdbl(v));
+  F y3 = fq::fsub(fq::mm(r, fq::fsub(v, x3)), fq::fdbl(fq::mm(s1, jj)));
+  F zs = fq::fadd(z1, z2);
+  F z3 = fq::mm(fq::fsub(fq::mm(zs, zs), fq::fadd(z1z1, z2z2)), h);
+
+  const bool same = fq::is_zero(h) && fq::is_zero(r);
+  const bool p_inf = fq::is_zero(z1), q_inf = fq::is_zero(z2);
+  F xd, yd, zd;
+  dbl_core(x1, y1, z1, xd, yd, zd);
+  x3 = fq::select(same, xd, x3);
+  y3 = fq::select(same, yd, y3);
+  z3 = fq::select(same, zd, z3);
+  x3 = fq::select(p_inf, x2, x3);
+  y3 = fq::select(p_inf, y2, y3);
+  z3 = fq::select(p_inf, z2, z3);
+  x3 = fq::select(q_inf, x1, x3);
+  y3 = fq::select(q_inf, y1, y3);
+  z3 = fq::select(q_inf, z1, z3);
+  fq::store(ox, n, j, x3);
+  fq::store(oy, n, j, y3);
+  fq::store(oz, n, j, z3);
+}
+
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -137,5 +230,24 @@ extern "C" int g1_padd01(const int32_t* x1, const int32_t* y1, const int32_t* m1
   if (n <= 0) return 0;
   padd01_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       x1, y1, m1, x2, y2, m2, ox, oy, oz, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int g1_add(const int32_t* x1, const int32_t* y1, const int32_t* z1,
+                      const int32_t* x2, const int32_t* y2, const int32_t* z2,
+                      int32_t* ox, int32_t* oy, int32_t* oz, long long n,
+                      void* stream) {
+  if (n <= 0) return 0;
+  add_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      x1, y1, z1, x2, y2, z2, ox, oy, oz, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int g1_dbl(const int32_t* x1, const int32_t* y1, const int32_t* z1,
+                      int32_t* ox, int32_t* oy, int32_t* oz, long long n,
+                      void* stream) {
+  if (n <= 0) return 0;
+  dbl_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      x1, y1, z1, ox, oy, oz, n);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,15 @@
 """Batched G1 points over limb tensors (PyTorch).
 
-Port of gemini_tpu/curve/g1.py's point types and conversions.  Points
-are structure-of-arrays: Jacobian (X, Y, Z) with each coordinate an
-(L, *batch) Fq Montgomery limb tensor, infinity iff Z == 0; affine
-points carry an explicit infinity mask.
+Port of gemini_tpu/curve/g1.py.  Points are structure-of-arrays:
+Jacobian (X, Y, Z) with each coordinate an (L, *batch) Fq Montgomery
+limb tensor, infinity iff Z == 0; affine points carry an explicit
+infinity mask.
 
-The group law itself lives in the MSM's projective kernels
-(curve/g1_kernels.py); the reference's tape-VM Jacobian formulas exist
-only to bound JAX compile time and are not ported.
+The Jacobian group law (`add`, `double`) is one launch of the
+hand-written kernels `add` / `dbl` (curve/g1_kernels.py) on CUDA
+tensors and their plain versions on CPU tensors; the reference's tape
+VM and flat formulas exist only to bound JAX compile time and are not
+ported.  Every op is canonical, so the limbs equal the reference's.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..fields import fp
 from ..fields.fp import FQ
+from . import g1_kernels
 
 S = FQ  # field spec for coordinates
 
@@ -39,8 +42,42 @@ class APoint(NamedTuple):
     inf: torch.Tensor
 
 
+def infinity(batch_shape, device) -> JPoint:
+    z = S.zeros(batch_shape, device)
+    return JPoint(S.ones_mont(batch_shape, device),
+                  S.ones_mont(batch_shape, device), z)
+
+
 def is_infinity(p: JPoint):
     return fp.is_zero(S, p.z)
+
+
+def select_point(mask, a: JPoint | APoint, b: JPoint | APoint):
+    """mask ? a : b, elementwise over the batch."""
+    if isinstance(a, JPoint):
+        return JPoint(fp.select(mask, a.x, b.x), fp.select(mask, a.y, b.y),
+                      fp.select(mask, a.z, b.z))
+    return APoint(fp.select(mask, a.x, b.x), fp.select(mask, a.y, b.y),
+                  torch.where(mask, a.inf, b.inf))
+
+
+def double(p: JPoint) -> JPoint:
+    """dbl-2009-l (2M + 5S).  Maps infinity to infinity and 2-torsion
+    (y = 0) to infinity via z3 = 2 y z."""
+    return JPoint(*g1_kernels.double(p))
+
+
+def add(p: JPoint, q: JPoint) -> JPoint:
+    """Complete Jacobian addition (add-2007-bl + doubling fallback +
+    identity selects)."""
+    return JPoint(*g1_kernels.add(p, q))
+
+
+def add_mixed(p: JPoint, q: APoint) -> JPoint:
+    """Complete mixed addition: add(p, from_affine(q)), the reference's
+    kernel branch; equal limb for limb to its madd-2007-bl, since every
+    op is canonical."""
+    return add(p, from_affine(q))
 
 
 def neg(p: JPoint) -> JPoint:
@@ -62,6 +99,17 @@ def from_affine(a: APoint) -> JPoint:
     one = S.ones_mont(a.x.shape[1:], dev)
     z = fp.select(a.inf, S.zeros(a.x.shape[1:], dev), one)
     return JPoint(a.x, a.y, z)
+
+
+def scalar_mul(p: JPoint, k_bits) -> JPoint:
+    """Per-element scalar multiplication; k_bits is a (nbits, *batch)
+    bool tensor, LSB first.  Double-and-add, one add and one double
+    launch per bit."""
+    acc, base = infinity(p.x.shape[1:], p.x.device), p
+    for bits in k_bits:
+        acc = select_point(bits, add(acc, base), acc)
+        base = double(base)
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """The G1 group-law and Fq Montgomery kernels, hand-written for Hopper.
 
-Port of gemini_tpu/curve/pallas_g1.py's main-path kernels:
+Port of gemini_tpu/curve/pallas_g1.py's kernels:
 
   padd      <- `_padd_kernel`   complete RCB projective add, relaxed
   padd01    <- `_padd01_kernel` the same add for z in {0, 1} operands
   mont_mul  <- `_mm_kernel`     canonical Fq Montgomery product
+  add       <- `_add_kernel`    complete Jacobian add, canonical
+  dbl       <- `_dbl_kernel`    Jacobian doubling, canonical
 
 The kernels are CUDA C++ (csrc/g1_kernels.cu, csrc/fq.cuh), compiled
 with nvcc for sm_90a at first use into `_build/` and bound with ctypes.
@@ -17,7 +19,8 @@ Contracts (the Pallas kernels'): coordinates are (24, *batch) int32
 16-bit limbs; `mont_mul` takes inputs < p and returns canonical
 output; `padd` takes inputs < 2p, returns outputs < 2p, identity
 (0 : y : 0); `padd01` takes (x, y, mask) operands with z = mask in
-{0, 1} and dead lanes (0 : y : 0).
+{0, 1} and dead lanes (0 : y : 0); `add` and `double` take Jacobian
+(x, y, z) inputs < p, return outputs < p, identity z = 0.
 
 `LAUNCHES` counts kernel launches (the plain path does not count), so
 a run can show that the main path went through the kernels.
@@ -26,32 +29,17 @@ a run can show that the main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import glob
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import numpy as np
 import torch
 
+from .. import cuda_lib
 from ..fields import fp
 from ..fields.fp import FQ, I32, I64, _carry, _col, _mul_wide, _redc
 
 L = FQ.n_limbs  # 24
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
-
-LAUNCHES = {"padd": 0, "padd01": 0, "mont_mul": 0}
-
-_lib = None
-_lib_lock = threading.Lock()
+LAUNCHES = {"padd": 0, "padd01": 0, "mont_mul": 0, "add": 0, "dbl": 0}
 
 
 def reset_launches() -> None:
@@ -59,64 +47,15 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-# ---------------------------------------------------------------------------
-# Build and bind (nvcc -> shared library with a C interface -> ctypes)
-# ---------------------------------------------------------------------------
-
-
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
-                  + glob.glob(os.path.join(CSRC, "*.cuh")))
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
-
-
-def build(verbose: bool = False) -> str:
-    """Compile csrc/g1_kernels.cu into `_build/libg1_kernels_<hash>.so`
-    unless it exists (the hash covers every source and the flags); the
-    build runs under a file lock so concurrent processes share it.
-    Returns the library path; raises with nvcc's output on failure."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        with open(src, "rb") as f:
-            h.update(f.read())
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"libg1_kernels_{h.hexdigest()[:12]}.so")
-    with open(os.path.join(BUILD_DIR, "g1_kernels.lock"), "w") as lockf:
-        fcntl.flock(lockf, fcntl.LOCK_EX)
-        if os.path.exists(so):
-            return so
-        tmp = f"{so}.tmp.{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-               os.path.join(CSRC, "g1_kernels.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stderr.strip(), flush=True)
-        os.replace(tmp, so)
-    return so
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, n = ctypes.c_void_p, ctypes.c_longlong
-            lib.g1_mont_mul.argtypes = [p, p, p, n, p]
-            lib.g1_padd.argtypes = [p] * 9 + [n, p]
-            lib.g1_padd01.argtypes = [p] * 9 + [n, p]
-            for fn in (lib.g1_mont_mul, lib.g1_padd, lib.g1_padd01):
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+def _bind(lib):
+    p, n = ctypes.c_void_p, ctypes.c_longlong
+    lib.g1_mont_mul.argtypes = [p, p, p, n, p]
+    for fn in (lib.g1_padd, lib.g1_padd01, lib.g1_add):
+        fn.argtypes = [p] * 9 + [n, p]
+    lib.g1_dbl.argtypes = [p] * 6 + [n, p]
+    for fn in (lib.g1_mont_mul, lib.g1_padd, lib.g1_padd01, lib.g1_add,
+               lib.g1_dbl):
+        fn.restype = ctypes.c_int
 
 
 def _check(name, tensors, rows):
@@ -139,7 +78,7 @@ def _check(name, tensors, rows):
 def _launch(name, fn, ins, n_out, rows):
     dev, n = _check(name, ins, rows)
     outs = [torch.empty((L, n), dtype=I32, device=dev) for _ in range(n_out)]
-    lib = _load()
+    lib = cuda_lib.library("g1_kernels", _bind)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, fn)(*[t.data_ptr() for t in ins + outs], n, stream)
@@ -245,6 +184,84 @@ def padd01_plain(x1, y1, m1, x2, y2, m2):
             _rmm_add(z3, t4, t0, t3).to(I32))
 
 
+# Canonical-domain ops of pallas_g1._F (the Jacobian group law), with
+# their integer semantics for any 384-bit input.
+
+
+def _mm(a, b):
+    return fp.mont_mul_wide(FQ, a, b)
+
+
+def _fadd(a, b):
+    """a + b mod 2^384, minus p when that is >= p or the sum carried out."""
+    s, cout = _carry(a + b)
+    d, c = _carry(s - _k("mod", s))
+    return torch.where(((c >= 0) | (cout > 0)).unsqueeze(0), d, s)
+
+
+def _fsub(a, b):
+    """a - b mod 2^384, plus p (mod 2^384) on a borrow."""
+    d, c = _carry(a - b)
+    f, _ = _carry(d + _k("mod", d))
+    return torch.where((c < 0).unsqueeze(0), f, d)
+
+
+def _fdbl(a):
+    return _fadd(a, a)
+
+
+def _is_zero(a):
+    return (a == 0).all(dim=0).unsqueeze(0)
+
+
+def _dbl_core(x, y, z):
+    a = _mm(x, x)
+    b = _mm(y, y)
+    c = _mm(b, b)
+    xb = _fadd(x, b)
+    d = _fdbl(_fsub(_mm(xb, xb), _fadd(a, c)))
+    e = _fadd(_fdbl(a), a)
+    f = _mm(e, e)
+    x3 = _fsub(f, _fdbl(d))
+    c8 = _fdbl(_fdbl(_fdbl(c)))
+    y3 = _fsub(_mm(e, _fsub(d, x3)), c8)
+    z3 = _fdbl(_mm(y, z))
+    return x3, y3, z3
+
+
+def double_plain(x, y, z):
+    """_dbl_core (dbl-2009-l) on (24, n) int32 limbs."""
+    return tuple(o.to(I32) for o in _dbl_core(*(t.to(I64) for t in (x, y, z))))
+
+
+def add_plain(x1, y1, z1, x2, y2, z2):
+    """_add_core (add-2007-bl, the doubling where h = r = 0, then the
+    identity selects on z1 = 0 and z2 = 0) on (24, n) int32 limbs."""
+    x1, y1, z1, x2, y2, z2 = (t.to(I64) for t in (x1, y1, z1, x2, y2, z2))
+    z1z1 = _mm(z1, z1)
+    z2z2 = _mm(z2, z2)
+    u1 = _mm(x1, z2z2)
+    u2 = _mm(x2, z1z1)
+    s1 = _mm(_mm(y1, z2), z2z2)
+    s2 = _mm(_mm(y2, z1), z1z1)
+    h = _fsub(u2, u1)
+    h2 = _fdbl(h)
+    i = _mm(h2, h2)
+    j = _mm(h, i)
+    r = _fdbl(_fsub(s2, s1))
+    v = _mm(u1, i)
+    x3 = _fsub(_fsub(_mm(r, r), j), _fdbl(v))
+    y3 = _fsub(_mm(r, _fsub(v, x3)), _fdbl(_mm(s1, j)))
+    zs = _fadd(z1, z2)
+    z3 = _mm(_fsub(_mm(zs, zs), _fadd(z1z1, z2z2)), h)
+    out = (x3, y3, z3)
+    same = _is_zero(h) & _is_zero(r)
+    out = [torch.where(same, d, o) for d, o in zip(_dbl_core(x1, y1, z1), out)]
+    out = [torch.where(_is_zero(z1), q, o) for q, o in zip((x2, y2, z2), out)]
+    out = [torch.where(_is_zero(z2), p, o) for p, o in zip((x1, y1, z1), out)]
+    return tuple(o.to(I32) for o in out)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: (L, *batch) in, (L, *batch) out; CPU tensors -> plain
 # version, CUDA tensors -> kernel.
@@ -291,4 +308,28 @@ def padd01(p, q):
     else:
         outs = _launch("padd01", "g1_padd01", [x1, y1, m1, x2, y2, m2], 3,
                        [L, L, 0, L, L, 0])
+    return tuple(o.reshape(shape) for o in outs)
+
+
+def add(p, q):
+    """Complete Jacobian add: p, q are (x, y, z) tuples of (24, *batch)
+    canonical coords; identity z = 0.  Canonical outputs."""
+    shape = p[0].shape
+    ins = [_flat(t) for t in (*p, *q)]
+    if ins[0].device.type == "cpu":
+        outs = add_plain(*ins)
+    else:
+        outs = _launch("add", "g1_add", ins, 3, [L] * 6)
+    return tuple(o.reshape(shape) for o in outs)
+
+
+def double(p):
+    """Jacobian doubling of an (x, y, z) tuple of (24, *batch) canonical
+    coords (identity and 2-torsion map to z = 0)."""
+    shape = p[0].shape
+    ins = [_flat(t) for t in p]
+    if ins[0].device.type == "cpu":
+        outs = double_plain(*ins)
+    else:
+        outs = _launch("dbl", "g1_dbl", ins, 3, [L] * 3)
     return tuple(o.reshape(shape) for o in outs)

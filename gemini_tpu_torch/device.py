@@ -19,3 +19,8 @@ def resolve(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def name(dev: torch.device) -> str:
+    """What a measurement ran on: the card's name, or "cpu"."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

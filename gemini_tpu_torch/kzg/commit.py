@@ -8,7 +8,8 @@ native pairing, as in the reference (kzg/mod.rs:155-244).
 
   * SRS generation on CUDA: a host window table of generator multiples,
     one device gather per (window, scalar) and a tree of padd01/padd
-    launches over the window axis (`fixed_base_msm`).  With CPU tensors
+    launches over the window axis (`fixed_base_msm`), or of Jacobian add
+    launches under GEMINI_TPU_PROJ=0.  With CPU tensors
     the native host fixed-base builds the same points.
   * commit: one G1 MSM (ops/msm.py).
   * open: synthetic division as a suffix scan,
@@ -30,7 +31,14 @@ from ..fields import fp
 from ..fields.fp import FQ, FR
 from ..hostcurve import g1_add, g1_msm, g1_mul, g1_neg, g2_add, g2_mul, pairing
 from ..ops import ec_scan, poly, scan
-from ..ops.msm import _proj_to_jacobian, extract_digits, msm_batch, msm_mont_scalars
+from ..ops.msm import (
+    _proj_to_jacobian,
+    _use_proj,
+    combiners,
+    extract_digits,
+    msm_batch,
+    msm_mont_scalars,
+)
 from ..params import R
 from ..refimpl import g1_generator, g2_generator
 
@@ -45,21 +53,27 @@ def _apoint_slice(a: APoint, n: int) -> APoint:
     return APoint(a.x[:, :n], a.y[:, :n], a.inf[:n])
 
 
-def _fb_tree(tx, ty, tinf, idx):
+def _fb_tree(tx, ty, tinf, idx, use_proj: bool):
     """One gather of every window's table entry + a tree reduction over
     the WINDOW axis (log2(W) levels of complete adds per scalar; level 0
-    on padd01).  Returns Jacobian coordinate planes (L, n)."""
+    on padd01, or on the Jacobian add kernel under GEMINI_TPU_PROJ=0).
+    Returns Jacobian coordinate planes (L, n)."""
+    comb, comb01 = combiners(use_proj)
     gx, gy, ginf = tx[:, idx], ty[:, idx], tinf[idx]  # (24, W, n), (W, n)
     dev = gx.device
     gy = fp.select(ginf, FQ.ones_mont(ginf.shape, dev), gy)
     gx = fp.select(ginf, torch.zeros_like(gx), gx)
     mask = ~ginf
     h = gx.shape[1] // 2  # W is a power of two (c = 8 -> W = 32)
-    x, y, z = ec_scan.padd01_points((gx[:, :h], gy[:, :h], mask[:h]),
-                                    (gx[:, h:], gy[:, h:], mask[h:]))
+    x, y, z = comb01((gx[:, :h], gy[:, :h], mask[:h]),
+                     (gx[:, h:], gy[:, h:], mask[h:]))
     x, y, z = ec_scan.tree_reduce(
-        (x.transpose(1, 2), y.transpose(1, 2), z.transpose(1, 2)))
-    return _proj_to_jacobian(x[..., 0], y[..., 0], z[..., 0])
+        (x.transpose(1, 2), y.transpose(1, 2), z.transpose(1, 2)),
+        combiner=comb)
+    x, y, z = x[..., 0], y[..., 0], z[..., 0]
+    if use_proj:
+        return _proj_to_jacobian(x, y, z)
+    return x, y, z
 
 
 def fixed_base_msm(base: G1Host, scalars_canonical, c: int = 8,
@@ -88,7 +102,8 @@ def fixed_base_msm(base: G1Host, scalars_canonical, c: int = 8,
     digits = extract_digits(scalars_canonical, c)
     offs = torch.arange(n_windows, device=dev)[:, None] << c
     idx = digits + offs  # (W, n); digit 0 rows hit table entry None
-    outs = [_fb_tree(tbl.x, tbl.y, tbl.inf, idx[:, s:s + block])
+    use_proj = _use_proj()
+    outs = [_fb_tree(tbl.x, tbl.y, tbl.inf, idx[:, s:s + block], use_proj)
             for s in range(0, n, block)]
     acc = JPoint(*(torch.cat([o[k] for o in outs], dim=1) for k in range(3)))
     end_timer(t)

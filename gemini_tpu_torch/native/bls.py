@@ -163,6 +163,8 @@ def g2_mul(p, k: int):
 
 
 def g1_msm(points, scalars) -> Optional[Tuple[int, int]]:
+    if len(points) != len(scalars):
+        raise ValueError(f"g1_msm: {len(points)} points, {len(scalars)} scalars")
     lib = load()
     pts = b"".join(_g1_bytes(p) for p in points)
     ks = b"".join((k % R).to_bytes(32, "little") for k in scalars)
@@ -192,6 +194,8 @@ def pairing(p, q):
 
 def multi_pairing(g1s: List, g2s: List):
     """prod_i e(P_i, Q_i) with ONE shared final exponentiation."""
+    if len(g1s) != len(g2s):
+        raise ValueError(f"multi_pairing: {len(g1s)} G1 points, {len(g2s)} G2 points")
     lib = load()
     ps = b"".join(_g1_bytes(p) for p in g1s)
     qs = b"".join(_g2_bytes(q) for q in g2s)

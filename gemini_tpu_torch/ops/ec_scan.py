@@ -1,20 +1,29 @@
 """EC scans for the MSM pipeline (port of gemini_tpu/ops/ec_scan.py).
 
-Points travel as (x, y, z) tuples of (L, *batch, n) projective limb
-tensors (identity (0 : y : 0)); the level-0 operands of a reduce chain
-are (x, y, mask) with z in {0, 1}.  Every add is one batched call of
-the hand-written kernels in curve/g1_kernels.py: `padd` for general
-operands, `padd01` for level 0.
+Points travel as (x, y, z) tuples of (L, *batch, n) limb tensors; the
+level-0 operands of a reduce chain are (x, y, mask) with z in {0, 1}.
+Every add is one batched call of a hand-written kernel in
+curve/g1_kernels.py, through a `combiner`: by default the projective
+`padd` (identity (0 : y : 0)) and `padd01` at level 0; with the
+Jacobian `add_points` (identity z = 0) the MSM's Jacobian configuration
+(ops/msm.py `_use_proj`).  z in {0, 1}, (0 : y : 0) and the lifted
+level-0 operands mean the same point in both coordinate systems.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..curve import g1_kernels
+from ..curve import g1, g1_kernels
 from ..fields.fp import FQ
 
 L = FQ.n_limbs
+
+
+def add_points(a, b):
+    """Complete Jacobian add of two (x, y, z) tuples through the add
+    kernel (g1.add); canonical in, canonical out."""
+    return tuple(g1.add(g1.JPoint(*a), g1.JPoint(*b)))
 
 
 def padd_points(a, b):
@@ -58,29 +67,30 @@ def _interleave_first(evens_first, combined, scanned):
     return tuple(out)
 
 
-def inclusive_scan_ec(elems):
+def inclusive_scan_ec(elems, combiner=padd_points):
     """Inclusive scan of points (x, y, z) (L, *batch, n) along the LAST
-    axis under point addition; n a power of two."""
+    axis under `combiner`; n a power of two."""
     n = elems[0].shape[-1]
     assert n & (n - 1) == 0
     if n == 1:
         return elems
     evens, odds = _eo_split(*elems)
-    reduced = padd_points(evens, odds)  # scan values at odd positions
-    scanned = inclusive_scan_ec(reduced)
+    reduced = combiner(evens, odds)  # scan values at odd positions
+    scanned = inclusive_scan_ec(reduced, combiner=combiner)
     if n == 2:
         return _interleave_first(evens, evens, scanned)
-    combined = padd_points(_shift_right(scanned), evens)
+    combined = combiner(_shift_right(scanned), evens)
     return _interleave_first(evens, combined, scanned)
 
 
-def tree_reduce(elems):
-    """Sum (x, y, z) along the LAST axis -> size 1; power-of-two n."""
+def tree_reduce(elems, combiner=padd_points):
+    """Sum (x, y, z) along the LAST axis -> size 1 under `combiner`;
+    power-of-two n."""
     x, y, z = elems
     while x.shape[-1] > 1:
         h = x.shape[-1] // 2
-        x, y, z = padd_points((x[..., :h], y[..., :h], z[..., :h]),
-                              (x[..., h:], y[..., h:], z[..., h:]))
+        x, y, z = combiner((x[..., :h], y[..., :h], z[..., :h]),
+                           (x[..., h:], y[..., h:], z[..., h:]))
     return x, y, z
 
 
@@ -124,7 +134,8 @@ def _stored_index(p, n_k: int, r_k: int):
     return (rev << shift) | (p >> r_k)
 
 
-def prefix_sums_at(x, y, mask, pos, rev_bits: int = 0):
+def prefix_sums_at(x, y, mask, pos, combiner=padd_points,
+                   combiner01=padd01_points, rev_bits: int = 0):
     """Inclusive PREFIX sums of points at given positions only.
 
     x, y: (L, *batch, n); mask: (*batch, n) bool, z in {0, 1} per lane;
@@ -142,6 +153,10 @@ def prefix_sums_at(x, y, mask, pos, rev_bits: int = 0):
     bit-reversed layout with rb = bitrev_levels(n, m), so level splits
     are contiguous halves; walk-down gathers translate positions with
     `_stored_index`.
+
+    `combiner` adds general operands, `combiner01` two (x, y, mask)
+    level-0 operands.  The empty-position identity (0 : 1_mont : 0) has
+    z = 0, the identity of both coordinate systems.
     """
     n = x.shape[-1]
     assert n & (n - 1) == 0
@@ -165,13 +180,13 @@ def prefix_sums_at(x, y, mask, pos, rev_bits: int = 0):
         else:
             ev = (cx[..., 0::2], cy[..., 0::2], cz[..., 0::2])
             od = (cx[..., 1::2], cy[..., 1::2], cz[..., 1::2])
-        cx, cy, cz = (padd01_points if is01 else padd_points)(ev, od)
+        cx, cy, cz = (combiner01 if is01 else combiner)(ev, od)
         is01 = False
 
     # Full inclusive prefix scan at the stop level.
     if is01:
         cx, cy, cz = _lift01(cx, cy, cz)
-    sx, sy, sz = inclusive_scan_ec((cx, cy, cz))
+    sx, sy, sz = inclusive_scan_ec((cx, cy, cz), combiner=combiner)
 
     poss = [pos]
     for _ in levels:
@@ -212,5 +227,5 @@ def prefix_sums_at(x, y, mask, pos, rev_bits: int = 0):
         else:
             gzv = torch.where(even.unsqueeze(0), gather_last(lz, sidx), 0)
         opx = torch.where(even.unsqueeze(0), gxv, 0)
-        rx, ry, rz = padd_points((rx, ry, rz), (opx, gyv, gzv))
+        rx, ry, rz = combiner((rx, ry, rz), (opx, gyv, gzv))
     return rx, ry, rz

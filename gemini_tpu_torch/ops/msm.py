@@ -9,10 +9,11 @@ With points sorted by digit, each inner sum is one prefix sum of the
 flipped sorted array at a bucket boundary, so per window the bucket
 phase is a reduce chain + a scan at the stop level + a walk-down
 (ops/ec_scan.prefix_sums_at) and a tree reduction.  Every EC add is a
-batched launch of the hand-written CUDA kernels (padd01 at level 0,
-padd elsewhere).  Digits are SIGNED (magnitude <= 2^(c-1); negative
-digits negate the point during the sort).  The final Horner combine
-over the O(W) window totals runs on the host.
+batched launch of a hand-written CUDA kernel: padd01 at level 0 and
+padd elsewhere (projective, the default), or the Jacobian add kernel
+when GEMINI_TPU_PROJ=0 (`_use_proj`).  Digits are SIGNED (magnitude
+<= 2^(c-1); negative digits negate the point during the sort).  The
+final Horner combine over the O(W) window totals runs on the host.
 
 Scalars enter in canonical (non-Montgomery) limb form, reduced (< R);
 points as affine with infinity masks.  Small MSMs (n <= 4096) run on
@@ -25,6 +26,7 @@ gemini_tpu).
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -177,6 +179,27 @@ def _proj_to_jacobian(x, y, z):
     return xz, yz2, fp.add(FQ, z, torch.zeros_like(z))
 
 
+def _use_proj() -> bool:
+    """The projective padd/padd01 pipeline unless GEMINI_TPU_PROJ=0,
+    which selects the Jacobian add kernel (the reference's switch, read
+    on every call)."""
+    return os.environ.get("GEMINI_TPU_PROJ") != "0"
+
+
+def _jac_padd01(a, b):
+    """z in {0, 1} level-0 combiner of the Jacobian configuration: lift
+    the masks to Jacobian z and add through the add kernel."""
+    return ec_scan.add_points(ec_scan._lift01(*a), ec_scan._lift01(*b))
+
+
+def combiners(use_proj: bool):
+    """(combiner, level-0 combiner) of a configuration: the projective
+    padd/padd01 kernels, or the Jacobian add kernel for both."""
+    if use_proj:
+        return ec_scan.padd_points, ec_scan.padd01_points
+    return ec_scan.add_points, _jac_padd01
+
+
 def _boundary_positions(sd, c: int):
     """Flipped-prefix positions of the signed-digit bucket boundaries:
     suffix_{mag >= k} in sorted order == prefix up to
@@ -190,16 +213,19 @@ def _boundary_positions(sd, c: int):
     return (n - 1) - b
 
 
-def _window_chunk(px, py, pinf, mags, negs, c: int):
+def _window_chunk(px, py, pinf, mags, negs, c: int, use_proj: bool):
     """One window chunk: sort by magnitude, positional prefix sums at the
     2^(c-1) bucket boundaries, bucket tree-reduce.  Returns the chunk's
-    projective window totals, each (L, Wc)."""
+    window totals, each (L, Wc): projective with `use_proj`, else
+    Jacobian."""
+    combiner, combiner01 = combiners(use_proj)
     n = mags.shape[1]
     rb = ec_scan.bitrev_levels(n, 1 << (c - 1))
     fx, fy, fm, sd = _sort_gather_proj(px, py, pinf, mags, negs, rb)
     pos = _boundary_positions(sd, c)
-    bx, by, bz = ec_scan.prefix_sums_at(fx, fy, fm, pos, rev_bits=rb)
-    x, y, z = ec_scan.tree_reduce((bx, by, bz))
+    bx, by, bz = ec_scan.prefix_sums_at(fx, fy, fm, pos, combiner=combiner,
+                                        combiner01=combiner01, rev_bits=rb)
+    x, y, z = ec_scan.tree_reduce((bx, by, bz), combiner=combiner)
     return x[..., 0], y[..., 0], z[..., 0]
 
 
@@ -219,15 +245,17 @@ def _pad_points_scalars(points: APoint, scalars, npad: int):
     return points, scalars
 
 
-def _run_chunks(points: APoint, mags, negs, c: int, window_chunk: int):
-    """Run the window-chunk pipeline over all windows; returns projective
-    (x, y, z) totals of shape (L, W)."""
+def _run_chunks(points: APoint, mags, negs, c: int, window_chunk: int,
+                use_proj: bool):
+    """Run the window-chunk pipeline over all windows; returns (x, y, z)
+    totals of shape (L, W), projective with `use_proj`, else Jacobian."""
     W = mags.shape[0]
     tx, ty, tz = [], [], []
     for w0 in range(0, W, window_chunk):
         mc = mags[w0: w0 + window_chunk]
         nc = negs[w0: w0 + window_chunk]
-        x, y, z = _window_chunk(points.x, points.y, points.inf, mc, nc, c)
+        x, y, z = _window_chunk(points.x, points.y, points.inf, mc, nc, c,
+                                use_proj)
         tx.append(x)
         ty.append(y)
         tz.append(z)
@@ -264,8 +292,10 @@ def msm(points: APoint, scalars, host_max: int | None = None) -> JPoint:
     c, window_chunk = plan_window(npad)
     points, scalars = _pad_points_scalars(points, scalars, npad)
     mags, negs = extract_signed_digits(scalars, c)
-    totals = _proj_to_jacobian(*_run_chunks(points, mags, negs, c,
-                                            window_chunk))
+    use_proj = _use_proj()
+    totals = _run_chunks(points, mags, negs, c, window_chunk, use_proj)
+    if use_proj:
+        totals = _proj_to_jacobian(*totals)
     return _horner_host(totals, c, points.x.device)
 
 
@@ -312,8 +342,10 @@ def msm_batch(points: APoint, scalars_sets, host_max: int | None = None):
     W = mags_l[0].shape[0]
     mags = torch.cat(mags_l, dim=0)  # (S*W, lanes)
     negs = torch.cat(negs_l, dim=0)
-    totals = _proj_to_jacobian(*_run_chunks(points, mags, negs, c,
-                                            window_chunk))
+    use_proj = _use_proj()
+    totals = _run_chunks(points, mags, negs, c, window_chunk, use_proj)
+    if use_proj:
+        totals = _proj_to_jacobian(*totals)
     tot = [t.cpu() for t in totals]  # one readback for all sets
     return [
         _horner_host(tuple(t[:, i * W:(i + 1) * W] for t in tot), c,

@@ -180,7 +180,7 @@ def _imports(path):
 def test_port_boundaries(monkeypatch):
     """The port imports neither jax nor gemini_tpu; CUDA entry points
     raise without a card; CPU calls take the plain versions and count no
-    launch."""
+    launch (the group-law kernels and the benchmark probes)."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "gemini_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -213,7 +213,18 @@ def test_port_boundaries(monkeypatch):
     gk.padd((a, a, a), (a, a, a))
     m = torch.ones(8, dtype=torch.bool)
     gk.padd01((a, a, m), (a, a, m))
-    assert gk.LAUNCHES == {"padd": 0, "padd01": 0, "mont_mul": 0}
+    gk.add((a, a, a), (a, a, a))
+    gk.double((a, a, a))
+    assert gk.LAUNCHES == {"padd": 0, "padd01": 0, "mont_mul": 0, "add": 0,
+                           "dbl": 0}
+    from gemini_tpu_torch.benches import probes
+
+    probes.reset_launches()
+    probes.vpu_chain(a, a, 3)
+    probes.copy_add(a, a)
+    assert probes.LAUNCHES == {"vpu_chain": 0, "copy_add": 0}
+    with pytest.raises(ValueError):
+        probes._launch("copy_add", "probe_copy_add", a, a)
     # batch shapes pass through the wrappers: (24, 2, 4) in, out
     out = gk.padd((a.reshape(24, 2, 4),) * 3, (a.reshape(24, 2, 4),) * 3)
     assert out[0].shape == (24, 2, 4)
