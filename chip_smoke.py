@@ -8,10 +8,13 @@ native host library from the sources in the checkout, then, in order:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. holds each group-law kernel (padd, padd01, mont_mul, add, dbl)
-     against its plain PyTorch version, bit for bit, on 2^16 lanes and
-     on fresh 2^20-lane inputs (the MSM launches them at up to 2^19
-     lanes), edge lanes included, checks the group law on real points,
-     and times both at 2^20 lanes;
+     against its plain PyTorch version, bit for bit, on 2^14 lanes (the
+     prove's small launches), 2^16 lanes and fresh 2^20-lane inputs (the
+     MSM launches them at up to 2^19 lanes), edge lanes included, checks
+     the group law on real points, holds padd and padd01 on the MSM's
+     strided views (halves, even/odd, transposed halves of (24, 4, n)
+     tensors), and times every kernel at 2^20 lanes and padd, padd01 at
+     2^14;
   2b. holds the probe kernels against their plain versions at their
      entry points' shapes (vpu_chain at vpubench's 32 x 65536 elements,
      K = 128 and 512, uint32 and float32; copy_add at mmbench's 24 x
@@ -32,7 +35,12 @@ native host library from the sources in the checkout, then, in order:
      shows that the prove went through padd, padd01 and mont_mul;
   5b. does the same under GEMINI_TPU_PROJ=0 and shows that the SRS and
      the prove went through the Jacobian add kernel and not padd/padd01;
-  6. prints the kernel table as one JSON line, the card line, and as the
+  6. profiles one projective MSM at 2^20 and one projective 2^18 prove
+     with torch.profiler and prints, as one JSON line, each window's
+     device busy share, device ms per kernel (padd, padd01, mont_mul and
+     the ten largest others), the PyTorch copy kernels' device ms, and
+     the lanes each group-law kernel took;
+  7. prints the kernel table as one JSON line, the card line, and as the
      last line {"ok": true, "device": {...}}.
 
 Each kernel's launch count is read from its own path, with every count
@@ -116,11 +124,39 @@ def build_all():
     t0 = time.time()
     th = threading.Thread(target=host)
     th.start()
-    cuda_lib.build(verbose=True)
+    libs = cuda_lib.build(verbose=True)
     th.join()
     if errs:
         raise RuntimeError("; ".join(errs))
     log(f"build: {time.time() - t0:.2f} s (nvcc per source + g++ in parallel)")
+    log(json.dumps({"sass": sass_counts(libs["g1_kernels"])}))
+
+
+def sass_counts(lib_path: str) -> dict:
+    """Instructions per group-law kernel in the built library (cuobjdump
+    -sass): all of them, and the wide multiply-adds (IMAD.WIDE*), against
+    the formula's word products (WORD_PRODUCTS)."""
+    import re
+
+    from gemini_tpu_torch import cuda_lib
+
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = next((k for sub, k in OWN_KERNELS.items()
+                         if f"{len(sub)}{sub}E" in line), None)
+            if name:
+                out[name] = {"instructions": 0, "imad_wide": 0,
+                             "word_products": WORD_PRODUCTS[name]}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name and m:
+            out[name]["instructions"] += 1
+            out[name]["imad_wide"] += m.group(1).startswith("IMAD.WIDE")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -138,8 +174,8 @@ def kernel_inputs(n: int, seed: int):
     combination.  The Jacobian add and dbl get canonical lanes (< p):
     random coordinates, and edge lanes P + Q, P = Q (one and two
     representatives), P = -Q and the identity (z = 0) on either or both
-    sides, real points at random z.  Returns (padd ins, padd01 ins,
-    mont_mul ins, padd edges, add/dbl ins, add edges, dbl edges); an edge
+    sides, real points at random z.  Returns (padd ins, padd01 ins (bool
+    masks), mont_mul ins, padd edges, add/dbl ins, add edges, dbl edges); an edge
     list holds (lane, host result)."""
     import numpy as np
     import torch
@@ -238,7 +274,7 @@ def kernel_inputs(n: int, seed: int):
         return torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)).cuda()
 
     return ([t(v) for v in (x1, y1, z1, x2, y2, z2)],
-            [t(ax1), t(ay1), t(m1), t(ax2), t(ay2), t(m2)],
+            [t(ax1), t(ay1), t(m1).bool(), t(ax2), t(ay2), t(m2).bool()],
             [t(a), t(b)], edges, [t(v) for v in jin], add_edges, dbl_edges)
 
 
@@ -259,17 +295,49 @@ def check_group_law(outs, edges, label, jacobian=False):
             raise AssertionError(f"{label}: group law wrong on lane {lane}")
 
 
+def compare(name, got, want, what):
+    """Bit-for-bit equality of kernel outputs with plain outputs; returns
+    the max abs limb error (0), raises on any difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    got = [g.reshape(w.shape) for g, w in zip(got, want)]
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: kernel differs from plain version on "
+                             f"{what} (max abs limb error {err})")
+    return err
+
+
+def strided_views(a, kind):
+    """The MSM's operand views of a (24, 4, n) coordinate tensor (or a
+    (4, n) mask): the reduce chain's halves, the scan's even/odd stride-2
+    split, and the SRS tree's halves of a transposed (24, n, 4) plane."""
+    if kind == "halves":
+        h = a.shape[-1] // 2
+        return a[..., :h], a[..., h:]
+    if kind == "even/odd":
+        return a[..., 0::2], a[..., 1::2]
+    t = a.transpose(-1, -2).contiguous().transpose(-1, -2)  # lane stride 4
+    h = t.shape[-1] // 2
+    return t[..., :h], t[..., h:]
+
+
 def phase_kernels(results):
     """Each group-law kernel against its plain version, bit for bit, on
-    2^16 lanes and on fresh 2^20-lane inputs (the order of the MSM's
-    largest launches, up to 2^19 lanes), edge lanes included, with the
-    group law checked on the edge lanes; then both timed at 2^20."""
+    2^14 lanes (the prove's small launches), 2^16 lanes and fresh
+    2^20-lane inputs (the order of the MSM's largest launches, up to 2^19
+    lanes), edge lanes included, with the group law checked on the edge
+    lanes; padd and padd01 also on the MSM's strided operand views; then
+    every kernel timed at 2^20 lanes and padd, padd01 at 2^14."""
     import torch
 
     from gemini_tpu_torch.benches.timing import event_ms
     from gemini_tpu_torch.curve import g1_kernels as gk
 
-    for n, seed in ((1 << 16, 20261016), (1 << 20, 20261017)):
+    small = {}
+    for n, seed in ((1 << 14, 20261015), (1 << 16, 20261016), (1 << 20, 20261017)):
         (padd_in, padd01_in, mm_in, edges, jac_in, add_edges,
          dbl_edges) = kernel_inputs(n, seed=seed)
         cases = {
@@ -287,13 +355,7 @@ def phase_kernels(results):
                      "add": (add_edges, True), "dbl": (dbl_edges, True)}
         for name, (kern, plain, ins) in cases.items():
             got = kern(ins)
-            want = plain(*ins)
-            torch.cuda.synchronize()
-            err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                      for g, w in zip(got, want))
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"{name}: kernel differs from plain version "
-                                     f"on {n} lanes (max abs limb error {err})")
+            err = compare(name, got, plain(*ins), f"{n} lanes")
             if name in group_law:
                 law_edges, jacobian = group_law[name]
                 check_group_law(got, law_edges, name, jacobian=jacobian)
@@ -301,18 +363,56 @@ def phase_kernels(results):
             r["max_abs_err"] = max(r["max_abs_err"], err)
             log(f"kernel {name}: bit-exact against plain on {n} lanes (edge lanes "
                 f"included){', group law checked' if name in group_law else ''}")
-            del got, want
+            del got
+        if n == 1 << 14:
+            small = {k: cases[k] for k in ("padd", "padd01")}
+        if n == 1 << 16:
+            phase_strided(results, padd_in, padd01_in)
 
-    # timing at 2^20 lanes, on the inputs just compared
+    # timing at 2^20 lanes, on the inputs just compared, and at 2^14
     for name, (kern, plain, ins) in cases.items():
         ms = event_ms(lambda: kern(ins), 20)
         plain_ms = event_ms(lambda: plain(*ins), 2)
         c_in, c_out = COORDS_IN_OUT[name]
-        nbytes = n * 96 * (c_in + c_out) + (8 * n if name == "padd01" else 0)
+        nbytes = n * 96 * (c_in + c_out) + (2 * n if name == "padd01" else 0)
         results[name].update(ms=ms, plain_ms=plain_ms, library_ms=None,
                              bytes=nbytes, imads=n * WORD_PRODUCTS[name] * 2,
                              lanes=n, source=G1_SOURCE)
-        log(f"kernel {name} at 2^20 lanes: {ms:.4f} ms (plain {plain_ms:.2f} ms)")
+        line = f"kernel {name} at 2^20 lanes: {ms:.4f} ms (plain {plain_ms:.2f} ms)"
+        if name in small:
+            kern14, _, ins14 = small[name]
+            ms14 = event_ms(lambda: kern14(ins14), 100, spin_cycles=40_000_000)
+            results[name]["ms_2^14"] = ms14
+            line += f"; at 2^14 lanes: {ms14:.4f} ms"
+        log(line)
+
+
+def phase_strided(results, padd_in, padd01_in):
+    """padd and padd01 on the views the MSM hands them (halves, even/odd,
+    transposed halves of (24, 4, n) tensors, bool masks as they are),
+    bit for bit against the plain versions on contiguous copies.  The
+    padd01 inputs' dead lanes are already (0 : y : 0) under their masks."""
+    from gemini_tpu_torch.curve import g1_kernels as gk
+
+    n = padd_in[0].shape[1] // 4
+    coords = [t.reshape(24, 4, n) for t in padd_in[:3]]
+    ax, ay = (t.reshape(24, 4, n) for t in padd01_in[:2])
+    am = padd01_in[2].reshape(4, n)
+    for kind in ("halves", "even/odd", "transposed halves"):
+        p, q = zip(*(strided_views(t, kind) for t in coords))
+        err = compare("padd", gk.padd(p, q),
+                      gk.padd_plain(*(t.contiguous().reshape(24, -1)
+                                      for t in (*p, *q))), f"{kind} views")
+        (x1, x2), (y1, y2), (m1, m2) = (strided_views(t, kind) for t in (ax, ay, am))
+        flat = [t.contiguous().reshape(24, -1) for t in (x1, y1)]
+        flat2 = [t.contiguous().reshape(24, -1) for t in (x2, y2)]
+        err01 = compare("padd01", gk.padd01((x1, y1, m1), (x2, y2, m2)),
+                        gk.padd01_plain(*flat, m1.reshape(-1), *flat2,
+                                        m2.reshape(-1)), f"{kind} views")
+        for name, e in (("padd", err), ("padd01", err01)):
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+        log(f"kernels padd, padd01: bit-exact against plain on {kind} views of "
+            f"(24, 4, {n}) tensors")
 
 
 def phase_probes(results):
@@ -517,6 +617,7 @@ def phase_msm():
     timed("projective")
     with jacobian_config():
         timed("jacobian")
+    return pts, sc
 
 
 # ---------------------------------------------------------------------------
@@ -587,6 +688,7 @@ def phase_full(results, jacobian: bool):
     prove_s = time.time() - t0
     os.environ.pop("GEMINI_TPU_TRACE")
     launches = dict(gk.LAUNCHES)
+    lanes = dict(gk.LANES)
     t0 = time.time()
     proof.verify(r1cs, vk)
     verify_s = time.time() - t0
@@ -601,6 +703,7 @@ def phase_full(results, jacobian: bool):
             if launches[name] == 0:
                 raise AssertionError(f"the 2^{logn} prove launched no {name} kernel")
             results[name]["launches"] = launches[name]
+            results[name]["lanes_per_prove"] = lanes[name]
 
     bad = copy.deepcopy(proof)
     bad.zc_alpha = (bad.zc_alpha + 1) % R
@@ -614,7 +717,120 @@ def phase_full(results, jacobian: bool):
                     "setup_s": setup_s, "prove_s": prove_s, "verify_s": verify_s,
                     "proof_bytes": len(snark_proof_bytes(proof)),
                     "setup_launches": setup_launches, "launches": launches,
-                    "tampered_rejected": True}))
+                    "lanes": lanes, "tampered_rejected": True}))
+    return r1cs, ck
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: device profile of the main path
+# ---------------------------------------------------------------------------
+
+
+OWN_KERNELS = {"padd01_kernel": "padd01", "padd_kernel": "padd",
+               "mont_mul_kernel": "mont_mul", "add_kernel": "add",
+               "dbl_kernel": "dbl"}
+
+
+def own_kernel(name: str):
+    """The port's kernel a trace name belongs to (its demangled name is
+    `(anonymous namespace)::<kernel>(...)`), or None."""
+    _, sep, head = name.partition("(anonymous namespace)::")
+    return OWN_KERNELS.get(head.split("(")[0].split("<")[0]) if sep else None
+
+
+def device_profile(fn):
+    """Run `fn` (ending in a synchronize) under torch.profiler (CPU and
+    CUDA activities) and read the device side of its trace: busy share
+    (union of device intervals over the window from the first to the
+    last event), device ms per kernel (the port's own by their names,
+    the ten largest others), and the PyTorch copy kernels' and memcpys'
+    device ms.  Returns None when the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    evs = prof.events()
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA
+           and e.time_range.end > e.time_range.start]
+    if not dev:
+        return None
+    t_lo = min(e.time_range.start for e in evs)
+    t_hi = max(e.time_range.end for e in evs)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s0, e0 in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if cur_e is None or s0 > cur_e:
+            busy += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    own = {k: [0.0, 0] for k in OWN_KERNELS.values()}
+    others, copy_ms, copy_n, memcpy_ms, memcpy_n = {}, 0.0, 0, 0.0, 0
+    for e in dev:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        tag = own_kernel(e.name)
+        if tag is not None:
+            own[tag][0] += ms
+            own[tag][1] += 1
+            continue
+        if e.name.startswith("Memcpy") or e.name.startswith("Memset"):
+            memcpy_ms += ms
+            memcpy_n += 1
+        elif "copy" in e.name.lower():
+            copy_ms += ms
+            copy_n += 1
+        o = others.setdefault(e.name, [0.0, 0])
+        o[0] += ms
+        o[1] += 1
+    top = sorted(others.items(), key=lambda kv: -kv[1][0])[:10]
+    return {
+        "window_ms": (t_hi - t_lo) / 1e3, "device_busy_ms": busy / 1e3,
+        "busy_share": busy / (t_hi - t_lo),
+        "kernel_ms": {k: v[0] for k, v in own.items() if v[1]},
+        "kernel_launches": {k: v[1] for k, v in own.items() if v[1]},
+        "top_others": [{"name": name[:120], "ms": v[0], "count": v[1]}
+                       for name, v in top],
+        "copy_kernels_ms": copy_ms, "copy_kernels_count": copy_n,
+        "memcpy_memset_ms": memcpy_ms, "memcpy_memset_count": memcpy_n,
+        "device_events": len(dev)}
+
+
+def phase_profile(results, msm_in, r1cs, ck):
+    """6: torch.profiler over one projective MSM at 2^20 and one
+    projective 2^18 prove, after the timed runs.  Without device events
+    in the trace, says so and gives sum(lanes x per-lane time at 2^20)
+    for the prove instead."""
+    import torch
+
+    from gemini_tpu_torch.curve import g1_kernels as gk
+    from gemini_tpu_torch.ops.msm import msm
+    from gemini_tpu_torch.snark import Proof
+
+    def run_msm():
+        msm(*msm_in)
+        torch.cuda.synchronize()
+
+    def run_prove():
+        Proof.new_time(r1cs, ck)
+        torch.cuda.synchronize()
+
+    out = {}
+    for label, fn in (("msm_2^20", run_msm), ("prove_2^18", run_prove)):
+        gk.reset_launches()
+        t0 = time.time()
+        prof = device_profile(fn)
+        wall = time.time() - t0
+        lanes = {k: v for k, v in gk.LANES.items() if v}
+        if prof is None:
+            prof = {"device_events": 0, "note": "the trace held no device event"}
+        prof.update(wall_s_under_profiler=wall, lanes=lanes,
+                    lanes_x_ms_per_lane_2p20={
+                        k: v * results[k]["ms"] / results[k]["lanes"]
+                        for k, v in lanes.items() if "ms" in results.get(k, {})})
+        out[label] = prof
+    log(json.dumps({"profile": out}))
 
 
 def kernel_rows(results, rates):
@@ -637,6 +853,9 @@ def kernel_rows(results, rates):
             "bound_by_measured_rate": "bytes" if t_bytes >= t_ops_meas else "operations",
             "bit_exact": r["bit_exact"], "lanes": r["lanes"],
         })
+        for key in ("ms_2^14", "lanes_per_prove"):
+            if key in r:
+                rows[-1][key] = r[key]
         if "float32_max_rel_err" in r:
             rows[-1]["float32_max_rel_err"] = r["float32_max_rel_err"]
     return rows
@@ -659,11 +878,12 @@ def main() -> int:
     phase_kernels(results)
     rates = phase_probes(results)
     phase_group_api(results)
-    phase_msm()
+    msm_in = phase_msm()
     phase_golden()
-    phase_full(results, jacobian=False)
+    r1cs, ck = phase_full(results, jacobian=False)
     with jacobian_config():
         phase_full(results, jacobian=True)
+    phase_profile(results, msm_in, r1cs, ck)
     log(f"total: {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernel_rows(results, rates)}))
     log(card)

@@ -15,17 +15,19 @@ import torch
 SPIN_CYCLES = 4_000_000  # about 2 ms of spin kernel at the H100's clock
 
 
-def event_ms(fn, iters: int, warm: bool = True, device=None) -> float:
+def event_ms(fn, iters: int, warm: bool = True, device=None,
+             spin_cycles: int = SPIN_CYCLES) -> float:
     """Device ms per call of `fn` (which launches work on the current
-    stream): events around `iters` calls queued behind a spin kernel, so
-    a short kernel is timed by the card and not at the host's launch
-    rate.  With `warm`, one untimed call comes first."""
+    stream): events around `iters` calls queued behind a spin kernel of
+    `spin_cycles`, so a short kernel is timed by the card and not at the
+    host's launch rate as long as the host queues the calls within the
+    spin.  With `warm`, one untimed call comes first."""
     if warm:
         fn()
     torch.cuda.synchronize(device)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin_cycles)
     e0.record()
     for _ in range(iters):
         fn()

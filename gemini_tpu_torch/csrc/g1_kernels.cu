@@ -1,6 +1,7 @@
 // Hand-written Hopper kernels for the G1 group law and the Fq Montgomery
 // product: the port of the five Pallas kernels of
-// gemini_tpu/curve/pallas_g1.py.
+// gemini_tpu/curve/pallas_g1.py (padd and padd01 redesigned for the
+// H100, the others sharing their field core).
 //
 //   g1_padd      replaces gemini_tpu/curve/pallas_g1.py `_padd_kernel`
 //                (complete RCB projective add, Renes-Costello-Batina
@@ -17,21 +18,55 @@
 //   g1_dbl       replaces `_dbl_kernel` (Jacobian dbl-2009-l, 7
 //                canonical products).
 //
-// Layout: every coordinate is a (24, n) int32 tensor of 16-bit limbs,
-// masks are (n,) int32 (nonzero = live).  One thread per lane; limbs
-// are repacked into 12 32-bit words in registers (fq.cuh).
+// Layout: every coordinate is (24, *batch) int32 16-bit limbs.  padd and
+// padd01 read their operands as the MSM hands them (halves of a
+// (24, W, n) tensor, stride-2 even/odd views, the SRS tree's transposed
+// halves; bool masks as they are) through a (limb, row, lane) stride
+// triple per operand, so no copy runs before them; every output is a
+// contiguous (24, n).  mont_mul, add and dbl take contiguous (24, n).
+// One thread per lane; limbs are repacked into 12 32-bit words in
+// registers (fq.cuh).  Selects instead of branches, so warps never
+// diverge on identity or doubling lanes.
 //
 // What bounds them on an H100: 32-bit integer multiply-add issue.  A
 // 12-word product is 144 32x32->64 word products and a word-serial REDC
 // another 144, so a padd issues 21 * 144 word products (12 products + 9
 // reductions), a padd01 15 * 144 and a mont_mul 2 * 144, each two IMADs
-// (low and high word) at half the float32 FMA rate.  Memory is the
-// smaller bound: a padd moves 864 bytes per lane (6 coordinates in, 3
-// out).  This first design is the plain one: the whole add lives in one
-// thread's registers (no intermediate leaves the SM), schoolbook
-// products with 64-bit accumulators, and selects instead of branches, so
-// warps never diverge on identity or doubling lanes.  Karatsuba, wgmma
-// or batched-affine adds are later work.
+// (low and high word) at half the float32 FMA rate: the data sheet's
+// 16.75 T IMAD/s.  Memory is the smaller bound: a padd moves 864 bytes
+// per lane (6 coordinates in, 3 out), 71% of its operations bound.
+//
+// The design (padd and padd01; mont_mul, add and dbl share the core):
+// - fq.cuh's Montgomery core runs CIOS on the carry flag, so each word
+//   product is one IMAD.WIDE.U32(.X) and the instruction count is close
+//   to the bound's (chip_smoke.py's `sass` line: padd 5680 instructions,
+//   3000 of them wide multiply-adds for its 3024 word products; the
+//   first design's C u64 arithmetic compiled to 15952).
+// - Register budget: __launch_bounds__(128, 3) for padd (168 registers,
+//   12 warps per SM), (128, 4) for padd01 (128 registers, 16 warps), no
+//   spills.  At two blocks padd needed more registers and ran slower; at
+//   four it spilled.  The products' order is free where they are
+//   independent (each relaxed value still comes out of the reference's
+//   sequence of field ops), so padd loads z last and, in its last three
+//   products, parks t1, t4 and t0 in shared memory as word operands
+//   (mont_core reads them one word per step); the lane index is read
+//   again before the stores.
+// - Launch shape from the lane count (threads_for): 128-thread blocks,
+//   or fewer (a multiple of 32) when n < 128 x SMs, so a small launch
+//   puts one block on every SM.  Up to 2^14 lanes (most of the prove's
+//   launches) a lone warp per scheduler runs one thread's dependent
+//   chain: there the time is latency, not issue.
+// Considered and not used:
+// - Tensor cores (the TPU kernel's redc_mxu runs REDC's two
+//   constant-operand products on the MXU): int8 mma.sync could take
+//   m = T_lo N' and m p, but each lane's bytes would have to move into
+//   fragment layout and the int32 column sums back, through shared
+//   memory (about 0.7 KB per lane per REDC), which costs about what it
+//   saves in IMAD issue.  A measured experiment for later (ROADMAP).
+// - TMA / cp.async: every limb row is one coalesced 4-byte load, read
+//   once, with no reuse across lanes to stage.
+// - A (12, n) word layout would halve the bytes, but (24, n) 16-bit
+//   limbs are the whole pipeline's contract; a pipeline change.
 //
 // g1_add and g1_dbl work in the canonical domain ([0, p), fq::mm and
 // fq::fadd/fsub/fdbl), so any correct implementation of the same
@@ -52,6 +87,10 @@ using fq::F;
 namespace {
 
 constexpr int kThreads = 128;
+// Blocks of kThreads each SM must hold: the register budget (168
+// registers for padd, 128 for padd01; see the note above).
+constexpr int kPaddMinBlocks = 3;
+constexpr int kPadd01MinBlocks = 4;
 
 __global__ void __launch_bounds__(kThreads)
     mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
@@ -61,48 +100,106 @@ __global__ void __launch_bounds__(kThreads)
   fq::store(out, n, j, fq::mm(fq::load(a, n, j), fq::load(b, n, j)));
 }
 
-// _padd_core: the same formula, the same order of operations.
-__global__ void __launch_bounds__(kThreads)
-    padd_kernel(const int32_t* __restrict__ px1, const int32_t* __restrict__ py1,
-                const int32_t* __restrict__ pz1, const int32_t* __restrict__ px2,
-                const int32_t* __restrict__ py2, const int32_t* __restrict__ pz2,
-                int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                int32_t* __restrict__ oz, long long n) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// One operand of padd / padd01 as the caller's view lays it out: lane
+// (batch row b, column i) of limb row r at p[r * ls + b * bs + i * es]
+// (a bool mask: p[b * bs + i * es]).  Outputs are contiguous (24, n)
+// with lane j = b * cols + i.
+struct Operand {
+  const void* p;
+  long long ls, bs, es;
+};
+struct Operands {
+  Operand o[6];
+};
+
+// The lane index, read again where it is used: a value the compiler
+// cannot carry through the kernel in a register (or spill) between the
+// loads and the stores.
+__device__ __forceinline__ unsigned lane_index() {
+#ifdef __CUDA_ARCH__
+  unsigned t, c, d;
+  asm volatile("mov.u32 %0, %%tid.x; mov.u32 %1, %%ctaid.x; mov.u32 %2, %%ntid.x;"
+               : "=r"(t), "=r"(c), "=r"(d));
+  return c * d + t;
+#else
+  return blockIdx.x * blockDim.x + threadIdx.x;
+#endif
+}
+
+// Shared memory as a word source for mont_core: a value that enters the
+// last products only as a word operand (one word per CIOS step) is
+// parked there, so those products hold 36 fewer words in registers.
+// Each thread reads back only its own words: no barrier.
+struct Parked {
+  volatile uint32_t* s;  // word k at s[k * kThreads]
+  __device__ __forceinline__ uint32_t operator[](int k) const { return s[k * kThreads]; }
+};
+
+__device__ __forceinline__ Parked park(volatile uint32_t* s, const F& a) {
+#pragma unroll
+  for (int k = 0; k < fq::NW; ++k) s[k * kThreads] = a.w[k];
+  return Parked{s};
+}
+
+__device__ __forceinline__ F load_op(const Operand& o, unsigned b, unsigned i) {
+  return fq::load((const int32_t*)o.p, o.ls, (long long)b * o.bs + (long long)i * o.es);
+}
+
+__device__ __forceinline__ bool load_mask(const Operand& o, unsigned b, unsigned i) {
+  return ((const uint8_t*)o.p)[(long long)b * o.bs + (long long)i * o.es] != 0;
+}
+
+// _padd_core: the same formula, each relaxed value computed by the same
+// sequence of field ops as in the reference; independent products run in
+// another order (z loaded last) to shorten the inputs' lives.
+__global__ void __launch_bounds__(kThreads, kPaddMinBlocks)
+    padd_kernel(const Operands in, int32_t* __restrict__ ox,
+                int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+                unsigned n, unsigned cols) {
+  unsigned j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  const F x1 = fq::load(px1, n, j), y1 = fq::load(py1, n, j), z1 = fq::load(pz1, n, j);
-  const F x2 = fq::load(px2, n, j), y2 = fq::load(py2, n, j), z2 = fq::load(pz2, n, j);
+  unsigned b = j / cols, i = j - b * cols;
+  const F x1 = load_op(in.o[0], b, i), x2 = load_op(in.o[3], b, i);
+  const F y1 = load_op(in.o[1], b, i), y2 = load_op(in.o[4], b, i);
   F t0 = fq::rmm(x1, x2);
-  F t1 = fq::rmm(y1, y2);
-  F t2 = fq::rmm(z1, z2);
   F t3 = fq::rmm(fq::radd(x1, y1), fq::radd(x2, y2));
-  t3 = fq::rsub(fq::rsub(t3, t0), t1);  // x1y2 + x2y1
-  F t4 = fq::rmm(fq::radd(y1, z1), fq::radd(y2, z2));
-  t4 = fq::rsub(fq::rsub(t4, t1), t2);  // y1z2 + y2z1
+  const F z1 = load_op(in.o[2], b, i), z2 = load_op(in.o[5], b, i);
   F x3 = fq::rmm(fq::radd(x1, z1), fq::radd(x2, z2));
+  F t1 = fq::rmm(y1, y2);
+  F t4 = fq::rmm(fq::radd(y1, z1), fq::radd(y2, z2));
+  F t2 = fq::rmm(z1, z2);
+  t3 = fq::rsub(fq::rsub(t3, t0), t1);  // x1y2 + x2y1
+  t4 = fq::rsub(fq::rsub(t4, t1), t2);  // y1z2 + y2z1
   F y3 = fq::rsub(fq::rsub(x3, t0), t2);  // x1z2 + x2z1
   t0 = fq::radd(fq::radd(t0, t0), t0);    // 3 x1x2
   t2 = fq::rmul12(t2);                    // b3 z1z2
   F z3 = fq::radd(t1, t2);
   t1 = fq::rsub(t1, t2);
   y3 = fq::rmul12(y3);  // b3 (x1z2 + x2z1)
-  fq::store(ox, n, j, fq::rmm_sub(t3, t1, t4, y3));
-  fq::store(oy, n, j, fq::rmm_add(t1, z3, y3, t0));
-  fq::store(oz, n, j, fq::rmm_add(z3, t4, t0, t3));
+  j = lane_index();
+  // The same three sums of products with each pair's operands in the
+  // order that makes t1, t4, t0 word operands only (a*b + c*d is
+  // symmetric, so the integers and their reductions are the same).
+  __shared__ volatile uint32_t sm[3][fq::NW][kThreads];
+  const Parked w1 = park(&sm[0][0][threadIdx.x], t1);
+  const Parked w4 = park(&sm[1][0][threadIdx.x], t4);
+  const Parked w0 = park(&sm[2][0][threadIdx.x], t0);
+  fq::store(ox, n, j, fq::rmm_add(t3, w1, fq::rneg(y3), w4));  // t3 t1 - t4 y3
+  fq::store(oy, n, j, fq::rmm_add(z3, w1, y3, w0));            // t1 z3 + y3 t0
+  fq::store(oz, n, j, fq::rmm_add(z3, w4, t3, w0));            // z3 t4 + t0 t3
 }
 
 // _padd01_core: z1, z2 in {0, 1} from the masks; dead lanes are (0 : y : 0).
-__global__ void __launch_bounds__(kThreads)
-    padd01_kernel(const int32_t* __restrict__ px1, const int32_t* __restrict__ py1,
-                  const int32_t* __restrict__ pm1, const int32_t* __restrict__ px2,
-                  const int32_t* __restrict__ py2, const int32_t* __restrict__ pm2,
-                  int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                  int32_t* __restrict__ oz, long long n) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kThreads, kPadd01MinBlocks)
+    padd01_kernel(const Operands in, int32_t* __restrict__ ox,
+                  int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+                  unsigned n, unsigned cols) {
+  unsigned j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  const F x1 = fq::load(px1, n, j), y1 = fq::load(py1, n, j);
-  const F x2 = fq::load(px2, n, j), y2 = fq::load(py2, n, j);
-  const bool live1 = pm1[j] != 0, live2 = pm2[j] != 0;
+  unsigned b = j / cols, i = j - b * cols;
+  const F x1 = load_op(in.o[0], b, i), y1 = load_op(in.o[1], b, i);
+  const F x2 = load_op(in.o[3], b, i), y2 = load_op(in.o[4], b, i);
+  const bool live1 = load_mask(in.o[2], b, i), live2 = load_mask(in.o[5], b, i);
   const F zero = fq::zero();
   F t0 = fq::rmm(x1, x2);
   F t1 = fq::rmm(y1, y2);
@@ -117,6 +214,7 @@ __global__ void __launch_bounds__(kThreads)
   F z3 = fq::radd(t1, twelve);
   t1 = fq::rsub(t1, twelve);
   y3 = fq::rmul12(y3);  // b3 (x1z2 + x2z1)
+  j = lane_index();
   fq::store(ox, n, j, fq::rmm_sub(t3, t1, t4, y3));
   fq::store(oy, n, j, fq::rmm_add(t1, z3, y3, t0));
   fq::store(oz, n, j, fq::rmm_add(z3, t4, t0, t3));
@@ -200,11 +298,40 @@ __global__ void __launch_bounds__(kThreads)
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+// Threads per block for a padd/padd01 launch of n lanes: 128, or fewer
+// (a multiple of 32) when n < 128 * SMs, so that a small launch still
+// puts one block on each SM instead of leaving SMs idle.
+int threads_for(long long n) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  long long per_sm = (n + sms - 1) / sms;
+  long long t = (per_sm + 31) / 32 * 32;
+  return (int)(t < 32 ? 32 : t > kThreads ? kThreads : t);
+}
+
+// desc: 6 operands x (pointer, limb stride, batch stride, lane stride).
+Operands operands(const long long* desc) {
+  Operands in;
+  for (int k = 0; k < 6; ++k) {
+    in.o[k].p = (const void*)desc[4 * k];
+    in.o[k].ls = desc[4 * k + 1];
+    in.o[k].bs = desc[4 * k + 2];
+    in.o[k].es = desc[4 * k + 3];
+  }
+  return in;
+}
+
 }  // namespace
 
-// C interface for ctypes: pointers to contiguous int32 device tensors,
-// the lane count and the CUDA stream.  Each returns cudaGetLastError()
-// right after the launch (0 = launched).
+// C interface for ctypes: device pointers, the lane count and the CUDA
+// stream (padd/padd01: operand descriptors and the lanes per batch row,
+// n = rows * cols <= 2^31; the others: contiguous int32 tensors).  Each
+// returns cudaGetLastError() right after the launch (0 = launched).
 
 extern "C" int g1_mont_mul(const int32_t* a, const int32_t* b, int32_t* out,
                            long long n, void* stream) {
@@ -213,23 +340,21 @@ extern "C" int g1_mont_mul(const int32_t* a, const int32_t* b, int32_t* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int g1_padd(const int32_t* x1, const int32_t* y1, const int32_t* z1,
-                       const int32_t* x2, const int32_t* y2, const int32_t* z2,
-                       int32_t* ox, int32_t* oy, int32_t* oz, long long n,
-                       void* stream) {
+extern "C" int g1_padd(const long long* desc, int32_t* ox, int32_t* oy,
+                       int32_t* oz, long long n, long long cols, void* stream) {
   if (n <= 0) return 0;
-  padd_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      x1, y1, z1, x2, y2, z2, ox, oy, oz, n);
+  int t = threads_for(n);
+  padd_kernel<<<(unsigned)((n + t - 1) / t), t, 0, (cudaStream_t)stream>>>(
+      operands(desc), ox, oy, oz, (unsigned)n, (unsigned)cols);
   return (int)cudaGetLastError();
 }
 
-extern "C" int g1_padd01(const int32_t* x1, const int32_t* y1, const int32_t* m1,
-                         const int32_t* x2, const int32_t* y2, const int32_t* m2,
-                         int32_t* ox, int32_t* oy, int32_t* oz, long long n,
-                         void* stream) {
+extern "C" int g1_padd01(const long long* desc, int32_t* ox, int32_t* oy,
+                         int32_t* oz, long long n, long long cols, void* stream) {
   if (n <= 0) return 0;
-  padd01_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      x1, y1, m1, x2, y2, m2, ox, oy, oz, n);
+  int t = threads_for(n);
+  padd01_kernel<<<(unsigned)((n + t - 1) / t), t, 0, (cudaStream_t)stream>>>(
+      operands(desc), ox, oy, oz, (unsigned)n, (unsigned)cols);
   return (int)cudaGetLastError();
 }
 

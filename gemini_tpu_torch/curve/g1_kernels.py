@@ -20,10 +20,14 @@ Contracts (the Pallas kernels'): coordinates are (24, *batch) int32
 output; `padd` takes inputs < 2p, returns outputs < 2p, identity
 (0 : y : 0); `padd01` takes (x, y, mask) operands with z = mask in
 {0, 1} and dead lanes (0 : y : 0); `add` and `double` take Jacobian
-(x, y, z) inputs < p, return outputs < p, identity z = 0.
+(x, y, z) inputs < p, return outputs < p, identity z = 0.  The padd
+and padd01 kernels read their operands as laid out, views included
+(`lane_strides`), and bool masks as they are; the other kernels take
+contiguous copies.  Outputs are contiguous.
 
-`LAUNCHES` counts kernel launches (the plain path does not count), so
-a run can show that the main path went through the kernels.
+`LAUNCHES` counts kernel launches and `LANES` the lanes they covered
+(the plain path counts neither), so a run can show that the main path
+went through the kernels, and how much work it gave each.
 """
 
 from __future__ import annotations
@@ -40,51 +44,103 @@ from ..fields.fp import FQ, I32, I64, _carry, _col, _mul_wide, _redc
 L = FQ.n_limbs  # 24
 
 LAUNCHES = {"padd": 0, "padd01": 0, "mont_mul": 0, "add": 0, "dbl": 0}
+LANES = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LANES[k] = 0
+
+
+STRIDED = ("padd", "padd01")  # kernels that read their operands' strides
+_Desc = ctypes.c_longlong * 24  # 6 operands x (pointer, 3 strides)
 
 
 def _bind(lib):
     p, n = ctypes.c_void_p, ctypes.c_longlong
     lib.g1_mont_mul.argtypes = [p, p, p, n, p]
-    for fn in (lib.g1_padd, lib.g1_padd01, lib.g1_add):
-        fn.argtypes = [p] * 9 + [n, p]
+    for fn in (lib.g1_padd, lib.g1_padd01):
+        fn.argtypes = [p] * 4 + [n, n, p]
+    lib.g1_add.argtypes = [p] * 9 + [n, p]
     lib.g1_dbl.argtypes = [p] * 6 + [n, p]
     for fn in (lib.g1_mont_mul, lib.g1_padd, lib.g1_padd01, lib.g1_add,
                lib.g1_dbl):
         fn.restype = ctypes.c_int
 
 
+def lane_strides(t, rows: int):
+    """(limb stride, batch stride, lane stride), in elements, of a padd /
+    padd01 operand: a (rows, *batch) coordinate view, or with rows = 0 a
+    (*batch) mask.  The kernel reads the batch as rows x cols, cols its
+    last dim: the leading dims must merge into one stride (halves, even/odd
+    splits and transposes of the MSM's (24, W, n) tensors do).  Raises
+    ValueError on a layout the kernel does not take."""
+    shape, strides = t.shape, t.stride()
+    ls = strides[0] if rows else 0
+    if rows:
+        shape, strides = shape[1:], strides[1:]
+    if len(shape) == 1:
+        return ls, 0, strides[0]
+    if len(shape) == 2:
+        return ls, (strides[0] if shape[0] != 1 else 0), strides[1]
+    if not shape:
+        raise ValueError("padd operands need a batch dimension")
+    lead = [(s, st) for s, st in zip(shape[:-1], strides[:-1]) if s != 1]
+    for (_, st0), (s1, st1) in zip(lead, lead[1:]):
+        if st0 != st1 * s1:
+            raise ValueError(f"batch dims {tuple(shape)} with strides {strides} "
+                             "do not merge into rows x lanes")
+    return ls, (lead[-1][1] if lead else 0), strides[-1]
+
+
 def _check(name, tensors, rows):
     dev = tensors[0].device
-    n = tensors[0].shape[-1]
+    batch = tuple(tensors[0].shape[1:])
     for t, r in zip(tensors, rows):
         if t.device != dev:
             raise ValueError(f"{name}: tensors on different devices")
         if dev.type != "cuda":
             raise ValueError(f"{name}: kernel launch needs CUDA tensors, got {dev}")
-        if t.dtype != I32:
-            raise TypeError(f"{name}: expected int32 limbs, got {t.dtype}")
-        if tuple(t.shape) != ((r, n) if r else (n,)):
+        want = torch.bool if (name in STRIDED and not r) else I32
+        if t.dtype != want:
+            raise TypeError(f"{name}: expected {want}, got {t.dtype}")
+        if tuple(t.shape) != (((r,) if r else ()) + batch):
             raise ValueError(f"{name}: bad shape {tuple(t.shape)}")
-        if not t.is_contiguous():
+        if name not in STRIDED and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    return dev, n
+    return dev, batch
 
 
 def _launch(name, fn, ins, n_out, rows):
-    dev, n = _check(name, ins, rows)
-    outs = [torch.empty((L, n), dtype=I32, device=dev) for _ in range(n_out)]
+    """Launch `fn` on `ins` ((rows, *batch) int32 coordinates; rows = 0 for
+    a mask); returns n_out contiguous (24, *batch) outputs.  padd and
+    padd01 take their operands as laid out (lane_strides); the other
+    kernels take contiguous tensors."""
+    dev, batch = _check(name, ins, rows)
+    outs = [torch.empty((L, *batch), dtype=I32, device=dev) for _ in range(n_out)]
+    n = outs[0].numel() // L
+    if n == 0:
+        return outs
+    if name in STRIDED:
+        if n >= 1 << 31:
+            raise ValueError(f"{name}: {n} lanes, at most 2^31 - 1 per launch")
+        desc = []
+        for t, r in zip(ins, rows):
+            desc.append(t.data_ptr())
+            desc.extend(lane_strides(t, r))
+        args = [_Desc(*desc),
+                *(o.data_ptr() for o in outs), n, batch[-1]]
+    else:
+        args = [t.data_ptr() for t in ins + outs] + [n]
     lib = cuda_lib.library("g1_kernels", _bind)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn)(*[t.data_ptr() for t in ins + outs], n, stream)
+        err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
     LAUNCHES[name] += 1
+    LANES[name] += n
     return outs
 
 
@@ -285,30 +341,30 @@ def mont_mul(a, b):
 
 def padd(p, q):
     """Complete projective add: p, q are (x, y, z) tuples of (24, *batch)
-    coords; identity is (0 : y : 0).  Relaxed: outputs < 2p."""
+    coords; identity is (0 : y : 0).  Relaxed: outputs < 2p.  The kernel
+    reads the operands as laid out (views included, lane_strides) and
+    returns contiguous (24, *batch) outputs."""
     shape = p[0].shape
-    ins = [_flat(t) for t in (*p, *q)]
-    if ins[0].device.type == "cpu":
-        outs = padd_plain(*ins)
-    else:
-        outs = _launch("padd", "g1_padd", ins, 3, [L] * 6)
-    return tuple(o.reshape(shape) for o in outs)
+    if p[0].device.type == "cpu":
+        outs = padd_plain(*(_flat(t) for t in (*p, *q)))
+        return tuple(o.reshape(shape) for o in outs)
+    return tuple(_launch("padd", "g1_padd", [*p, *q], 3, [L] * 6))
 
 
 def padd01(p, q):
     """Complete projective add for operands with z in {0, 1}: p, q are
     (x, y, mask) with coords (24, *batch) and mask (*batch) bool/int
-    (nonzero = live, zero = the identity (0 : y : 0))."""
+    (nonzero = live, zero = the identity (0 : y : 0)).  The kernel reads
+    coordinates and bool masks as laid out; other mask types are
+    converted first."""
     shape = p[0].shape
-    x1, y1, x2, y2 = (_flat(t) for t in (p[0], p[1], q[0], q[1]))
-    m1 = p[2].reshape(-1).to(I32).contiguous()
-    m2 = q[2].reshape(-1).to(I32).contiguous()
-    if x1.device.type == "cpu":
-        outs = padd01_plain(x1, y1, m1, x2, y2, m2)
-    else:
-        outs = _launch("padd01", "g1_padd01", [x1, y1, m1, x2, y2, m2], 3,
-                       [L, L, 0, L, L, 0])
-    return tuple(o.reshape(shape) for o in outs)
+    m1, m2 = (m if m.dtype == torch.bool else m != 0 for m in (p[2], q[2]))
+    if p[0].device.type == "cpu":
+        x1, y1, x2, y2 = (_flat(t) for t in (p[0], p[1], q[0], q[1]))
+        outs = padd01_plain(x1, y1, m1.reshape(-1), x2, y2, m2.reshape(-1))
+        return tuple(o.reshape(shape) for o in outs)
+    return tuple(_launch("padd01", "g1_padd01", [p[0], p[1], m1, q[0], q[1], m2],
+                         3, [L, L, 0, L, L, 0]))
 
 
 def add(p, q):

@@ -217,6 +217,22 @@ def test_port_boundaries(monkeypatch):
     gk.double((a, a, a))
     assert gk.LAUNCHES == {"padd": 0, "padd01": 0, "mont_mul": 0, "add": 0,
                            "dbl": 0}
+    assert gk.LANES == dict.fromkeys(gk.LAUNCHES, 0)
+    # padd/padd01 read the MSM's views as laid out: (limb, batch, lane)
+    # strides of a (24, W, n) tensor's halves, even/odd split, transposed
+    # halves (the SRS tree), and of its (W, n) bool masks
+    c = torch.zeros((24, 4, 16), dtype=torch.int32)
+    mk = torch.zeros((4, 16), dtype=torch.bool)
+    assert gk.lane_strides(c[..., 8:], 24) == (64, 16, 1)
+    assert gk.lane_strides(c[..., 1::2], 24) == (64, 16, 2)
+    assert gk.lane_strides(c.transpose(1, 2)[..., :2], 24) == (64, 1, 16)
+    assert gk.lane_strides(mk[..., 0::2], 0) == (0, 16, 2)
+    assert gk.lane_strides(a, 24) == (8, 0, 1)
+    assert gk.lane_strides(c.reshape(24, 2, 2, 16)[:, :, 1], 24) == (64, 32, 1)
+    with pytest.raises(ValueError):  # leading dims that do not merge
+        gk.lane_strides(c.reshape(24, 2, 2, 16)[:, :, :, :4].transpose(1, 2), 24)
+    with pytest.raises(ValueError):
+        gk.lane_strides(torch.zeros(24, dtype=torch.int32), 24)
     from gemini_tpu_torch.benches import probes
 
     probes.reset_launches()
