@@ -10,18 +10,25 @@ native host library from the sources in the checkout, then, in order:
   2. holds each group-law kernel (padd, padd01, mont_mul, add, dbl)
      against its plain PyTorch version, bit for bit, on 2^14 lanes (the
      prove's small launches), 2^16 lanes and fresh 2^20-lane inputs (the
-     MSM launches them at up to 2^19 lanes), edge lanes included, checks
-     the group law on real points, holds padd and padd01 on the MSM's
+     MSM launches them at up to 2^19 lanes), edge lanes and add's warp
+     layouts (a warp of P = Q, P = Q only at lane 0 or 31, a warp of
+     O + O, warps mixing O + P, P + O, P = -Q) included, checks the
+     group law on real points, holds padd, padd01 and add on the MSM's
      strided views (halves, even/odd, transposed halves of (24, 4, n)
-     tensors), and times every kernel at 2^20 lanes and padd, padd01 at
-     2^14;
-  2b. holds the probe kernels against their plain versions at their
-     entry points' shapes (vpu_chain at vpubench's 32 x 65536 elements,
-     K = 128 and 512, uint32 and float32; copy_add at mmbench's 24 x
-     2^16 limbs), then runs the vpubench and mmbench entry points: the
-     measured int32 multiply-add rate is the second denominator of
-     every operations bound, and mmbench gives the cost of one launch;
-     then the addbench and coreops entry points at their defaults;
+     tensors), shows that the guarded timer refuses a plain version,
+     and times every kernel at 2^20 lanes and all but mont_mul at 2^14;
+  2b. holds the probe kernels against their plain versions (vpu_chain at
+     vpubench's 32 x 65536 elements, K = 128 and 512, uint32 and
+     float32; copy_add at mmbench's 24 x 2^16 limbs, at 24 x 2^20, at an
+     odd count, misaligned, and a non-contiguous slice the wrapper
+     copies), then runs the l2bench entry point (the L2's read-write
+     rate, copy_add's bound at 24 x 2^16; copy_add, torch.add and
+     copy_add's other launch shapes at both shapes, by the guarded
+     event timer and by torch.profiler's device time), the vpubench and
+     mmbench entry points (the measured int32 multiply-add rate is the
+     second denominator of every operations bound, and mmbench gives
+     the cost of one launch), then addbench and coreops at their
+     defaults;
   2c. drives the group API on the card: scalar_mul of 2^12 points by
      255-bit scalars and add_mixed, against the host;
   3. runs the kernel MSM pipeline at 2^16 against the host Pippenger and
@@ -35,13 +42,16 @@ native host library from the sources in the checkout, then, in order:
      shows that the prove went through padd, padd01 and mont_mul;
   5b. does the same under GEMINI_TPU_PROJ=0 and shows that the SRS and
      the prove went through the Jacobian add kernel and not padd/padd01;
-  6. profiles one projective MSM at 2^20 and one projective 2^18 prove
-     with torch.profiler and prints, as one JSON line, each window's
-     device busy share, device ms per kernel (padd, padd01, mont_mul and
-     the ten largest others), the PyTorch copy kernels' device ms, and
-     the lanes each group-law kernel took;
-  7. prints the kernel table as one JSON line, the card line, and as the
-     last line {"ok": true, "device": {...}}.
+  6. profiles one projective MSM at 2^20, one Jacobian MSM at 2^20 and
+     one projective 2^18 prove with torch.profiler and prints, as one
+     JSON line, each window's device busy share, device ms per kernel
+     (the port's own and the ten largest others), the PyTorch copy
+     kernels' device ms, and the lanes each group-law kernel took;
+  6b. counts, untimed, the add lanes and warps that need the doubling in
+     one more Jacobian MSM at 2^20 and one more Jacobian 2^18 prove;
+  7. prints the phases' seconds, the kernel table as one JSON line
+     (bounds, shares of bound, ptxas registers and spills), the card
+     line, and as the last line {"ok": true, "device": {...}}.
 
 Each kernel's launch count is read from its own path, with every count
 set to 0 just before the path runs: padd, padd01, mont_mul from the
@@ -75,8 +85,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # and high word); a canonical product (mm) is 2 * 144 word products.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
+# Word products a kernel issues per lane: a product or a reduction is
+# 144.  add: 16 products and 15 reductions on a lane without the
+# doubling (ADD_WORD_PRODUCTS_23MM: the 23 canonical products, 2 * 144
+# each, of add-2007-bl beside dbl-2009-l, the first design's count).
 WORD_PRODUCTS = {"padd": 21 * 144, "padd01": 15 * 144, "mont_mul": 2 * 144,
-                 "add": 23 * 288, "dbl": 7 * 288}
+                 "add": 31 * 144, "dbl": 7 * 288}
+ADD_WORD_PRODUCTS_23MM = 23 * 288
 COORDS_IN_OUT = {"padd": (6, 3), "padd01": (4, 3), "mont_mul": (2, 1),
                  "add": (6, 3), "dbl": (3, 3)}
 G1_SOURCE = "gemini_tpu_torch/csrc/g1_kernels.cu"
@@ -124,12 +139,48 @@ def build_all():
     t0 = time.time()
     th = threading.Thread(target=host)
     th.start()
-    libs = cuda_lib.build(verbose=True)
+    libs = cuda_lib.build()
     th.join()
     if errs:
         raise RuntimeError("; ".join(errs))
     log(f"build: {time.time() - t0:.2f} s (nvcc per source + g++ in parallel)")
-    log(json.dumps({"sass": sass_counts(libs["g1_kernels"])}))
+    usage = {}
+    for stem, (_, report) in libs.items():
+        log(f"[{stem}.cu]\n{report.strip()}")
+        usage.update(ptxas_usage(report))
+    log(json.dumps({"sass": sass_counts(libs["g1_kernels"][0])}))
+    log(json.dumps({"ptxas": usage}))
+    return usage
+
+
+def kernel_of(symbol: str, names: dict):
+    """The port's kernel a mangled symbol names (a kernel `<sub>` in the
+    anonymous namespace mangles as `<len><sub>E`, a template as
+    `<len><sub>I`), or None."""
+    return next((k for sub, k in names.items()
+                 if f"{len(sub)}{sub}E" in symbol or f"{len(sub)}{sub}I" in symbol),
+                None)
+
+
+def ptxas_usage(text: str) -> dict:
+    """Registers and spill bytes (stores + loads) per kernel from ptxas
+    -v's report; a template kernel's instances give their largest."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_of(line, ALL_KERNELS)
+            if name:
+                out.setdefault(name, {"registers": 0, "spill_bytes": 0})
+        elif name and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[name]["spill_bytes"] = max(out[name]["spill_bytes"],
+                                           int(m.group(1)) + int(m.group(2)))
+        elif name and "Used" in line and "registers" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            out[name]["registers"] = max(out[name]["registers"], int(m.group(1)))
+    return out
 
 
 def sass_counts(lib_path: str) -> dict:
@@ -146,8 +197,7 @@ def sass_counts(lib_path: str) -> dict:
     out, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            name = next((k for sub, k in OWN_KERNELS.items()
-                         if f"{len(sub)}{sub}E" in line), None)
+            name = kernel_of(line, OWN_KERNELS)
             if name:
                 out[name] = {"instructions": 0, "imad_wide": 0,
                              "word_products": WORD_PRODUCTS[name]}
@@ -250,6 +300,15 @@ def kernel_inputs(n: int, seed: int):
 
     jin = [below(0x1A01) for _ in range(6)]  # canonical: < p
     add_edges, dbl_edges = [], []
+
+    def put_pair(lane, A, B, one_rep=False):
+        a = jac(A)
+        b = a if one_rep else jac(B)
+        for arr, v in zip(jin, (*a, *b)):
+            put(arr, lane, v)
+        add_edges.append((lane, g1_add(A, B)))
+        dbl_edges.append((lane, g1_add(A, A)))
+
     lane = 0
     pts += [g1_mul(g1_generator(), k) for k in range(1, 9)]  # small multiples
     for k, P in enumerate(pts):
@@ -258,13 +317,19 @@ def kernel_inputs(n: int, seed: int):
         for A, B, one_rep in ((P, Qp, False), (P, P, True), (P, P, False),
                               (P, negP, False), (None, P, False),
                               (P, None, False), (None, None, False)):
-            a = jac(A)
-            b = a if one_rep else jac(B)
-            for arr, v in zip(jin, (*a, *b)):
-                put(arr, lane, v)
-            add_edges.append((lane, g1_add(A, B)))
-            dbl_edges.append((lane, g1_add(A, A)))
+            put_pair(lane, A, B, one_rep)
             lane += 1
+    # Warp layouts of add's doubling branch, 32-lane warps from lane 192:
+    # a warp of P = Q (one and two representatives), P = Q only at lane 0
+    # and only at lane 31 of warps of random lanes, a warp of O + O, a
+    # warp mixing O + P, P + O and P = -Q.
+    for k in range(32):
+        P = pts[k % len(pts)]
+        put_pair(192 + k, P, P, one_rep=k % 2 == 0)
+        put_pair(288 + k, None, None)
+        put_pair(320 + k, *((None, P), (P, None), (P, (P[0], Q - P[1])))[k % 3])
+    put_pair(224, pts[3], pts[3])
+    put_pair(287, pts[4], pts[4])
     a, b = below(0x1A01), below(0x1A01)  # < p
     for i, v in enumerate((0, 1, Q - 1, FQ.mont_r)):
         put(a, i, v)
@@ -324,16 +389,31 @@ def strided_views(a, kind):
     return t[..., :h], t[..., h:]
 
 
+def plain_ms(fn, rounds: int = 2) -> float:
+    """Host-clock ms per call of a plain version (best of `rounds` after
+    a first call), ending in a synchronize.  The event timer's guard
+    refuses the plain versions (phase 2 shows it on mont_mul's): they
+    are chains of PyTorch launches, and `_carry` reads a flag on the host
+    in every pass, so the host waits for the device inside each call."""
+    import torch
+
+    from gemini_tpu_torch.benches.timing import wall_s
+
+    def once():
+        fn()
+        torch.cuda.synchronize()
+
+    return wall_s(once, rounds)[0] * 1e3
+
+
 def phase_kernels(results):
     """Each group-law kernel against its plain version, bit for bit, on
     2^14 lanes (the prove's small launches), 2^16 lanes and fresh
     2^20-lane inputs (the order of the MSM's largest launches, up to 2^19
-    lanes), edge lanes included, with the group law checked on the edge
-    lanes; padd and padd01 also on the MSM's strided operand views; then
-    every kernel timed at 2^20 lanes and padd, padd01 at 2^14."""
-    import torch
-
-    from gemini_tpu_torch.benches.timing import event_ms
+    lanes), edge lanes and add's warp layouts included, with the group
+    law checked on the edge lanes; padd, padd01 and add also on the MSM's
+    strided operand views; then every kernel timed at 2^20 lanes and at
+    2^14 (all but mont_mul)."""
     from gemini_tpu_torch.curve import g1_kernels as gk
 
     small = {}
@@ -355,7 +435,8 @@ def phase_kernels(results):
                      "add": (add_edges, True), "dbl": (dbl_edges, True)}
         for name, (kern, plain, ins) in cases.items():
             got = kern(ins)
-            err = compare(name, got, plain(*ins), f"{n} lanes")
+            want = plain(*ins)
+            err = compare(name, got, want, f"{n} lanes")
             if name in group_law:
                 law_edges, jacobian = group_law[name]
                 check_group_law(got, law_edges, name, jacobian=jacobian)
@@ -363,28 +444,72 @@ def phase_kernels(results):
             r["max_abs_err"] = max(r["max_abs_err"], err)
             log(f"kernel {name}: bit-exact against plain on {n} lanes (edge lanes "
                 f"included){', group law checked' if name in group_law else ''}")
-            del got
+            if name == "add" and n == 1 << 16:
+                phase_strided_add(results, jac_in, want)
+            del got, want
         if n == 1 << 14:
-            small = {k: cases[k] for k in ("padd", "padd01")}
+            small = {k: cases[k] for k in ("padd", "padd01", "add", "dbl")}
         if n == 1 << 16:
             phase_strided(results, padd_in, padd01_in)
+
+    from gemini_tpu_torch.benches.timing import QueueingOutlastedSpin, event_ms
+
+    try:
+        event_ms(lambda: gk.mont_mul_plain(*cases["mont_mul"][2]), 2)
+    except QueueingOutlastedSpin as e:
+        log(f"the guarded timer refuses a plain version, as expected: {e}")
+    else:
+        raise AssertionError("the guarded timer accepted mont_mul's plain version, "
+                             "which synchronizes inside")
 
     # timing at 2^20 lanes, on the inputs just compared, and at 2^14
     for name, (kern, plain, ins) in cases.items():
         ms = event_ms(lambda: kern(ins), 20)
-        plain_ms = event_ms(lambda: plain(*ins), 2)
+        pms = plain_ms(lambda: plain(*ins))
         c_in, c_out = COORDS_IN_OUT[name]
         nbytes = n * 96 * (c_in + c_out) + (2 * n if name == "padd01" else 0)
-        results[name].update(ms=ms, plain_ms=plain_ms, library_ms=None,
+        results[name].update(ms=ms, plain_ms=pms, library_ms=None,
                              bytes=nbytes, imads=n * WORD_PRODUCTS[name] * 2,
                              lanes=n, source=G1_SOURCE)
-        line = f"kernel {name} at 2^20 lanes: {ms:.4f} ms (plain {plain_ms:.2f} ms)"
+        line = f"kernel {name} at 2^20 lanes: {ms:.4f} ms (plain {pms:.2f} ms)"
         if name in small:
             kern14, _, ins14 = small[name]
             ms14 = event_ms(lambda: kern14(ins14), 100, spin_cycles=40_000_000)
             results[name]["ms_2^14"] = ms14
             line += f"; at 2^14 lanes: {ms14:.4f} ms"
+        if name == "add":
+            # 2^14 random lanes (the 2^20 inputs' last, no edge lanes): no
+            # warp takes the doubling, which 9 of the 2^14 inputs' take
+            last = [t[:, -(1 << 14):] for t in ins]
+            ms14r = event_ms(lambda: kern(last), 100, spin_cycles=40_000_000)
+            results[name]["ms_2^14_random_lanes"] = ms14r
+            line += f" ({ms14r:.4f} ms on random lanes)"
         log(line)
+
+
+def phase_strided_add(results, jac_in, want):
+    """add on the views the Jacobian MSM hands it (halves, even/odd,
+    transposed halves of (24, 4, 2m) tensors whose two views are the
+    2^16 test lanes' p and q, warp layouts included), bit for bit
+    against the plain result `want` on the contiguous lanes."""
+    import torch
+
+    from gemini_tpu_torch.curve import g1_kernels as gk
+
+    n = jac_in[0].shape[1]
+    m = n // 4
+    p = [t.reshape(24, 4, m) for t in jac_in[:3]]
+    q = [t.reshape(24, 4, m) for t in jac_in[3:]]
+    for kind in ("halves", "even/odd", "transposed halves"):
+        if kind == "even/odd":
+            both = [torch.stack([a, b], -1).reshape(24, 4, 2 * m) for a, b in zip(p, q)]
+        else:
+            both = [torch.cat([a, b], -1) for a, b in zip(p, q)]
+        pv, qv = zip(*(strided_views(t, kind) for t in both))
+        err = compare("add", gk.add(pv, qv), want, f"{kind} views")
+        results["add"]["max_abs_err"] = max(results["add"]["max_abs_err"], err)
+        log(f"kernel add: bit-exact against plain on {kind} views of (24, 4, "
+            f"{2 * m}) tensors (the 2^16-lane operands, warp layouts included)")
 
 
 def phase_strided(results, padd_in, padd01_in):
@@ -417,12 +542,11 @@ def phase_strided(results, padd_in, padd01_in):
 
 def phase_probes(results):
     """2b: the probe kernels against their plain versions, then the
-    vpubench and mmbench entry points at their defaults.  Returns the
-    measured rates."""
+    l2bench, vpubench, mmbench, addbench and coreops entry points at
+    their defaults.  Returns the measured rates."""
     import torch
 
     from gemini_tpu_torch.benches import addbench, coreops, mmbench, probes, vpubench
-    from gemini_tpu_torch.benches.timing import event_ms
 
     # vpu_chain against its plain version at vpubench's own inputs
     # (ROWS x TILE * GRID elements, K / 4 and K), for both types
@@ -442,17 +566,9 @@ def phase_probes(results):
                                      f"its plain version (max abs error {vpu_err})")
     if not frel < 1e-6:
         raise AssertionError(f"vpu_chain (float32) off its plain version: {frel}")
-    # copy_add at mmbench's shape, (24, 2^MM_LOGN) limbs
-    ca = probes.to_i32(torch.randint(
-        0, 1 << 32, (24, 1 << mmbench.LOGN), dtype=torch.int64, device="cuda",
-        generator=torch.Generator("cuda").manual_seed(6)))
-    cb = ca.flip(1).contiguous()
-    cgot, cwant = probes.copy_add(ca, cb), probes.copy_add_plain(ca, cb)
-    if not torch.equal(cgot, cwant):
-        raise AssertionError("copy_add differs from its plain version")
     log(f"probes: vpu_chain uint32 bit-exact against plain at {rows} x {n}, "
-        f"K = {k // 4} and {k}; float32 max relative error {frel:.3g}; "
-        f"copy_add bit-exact at 24 x {1 << mmbench.LOGN}")
+        f"K = {k // 4} and {k}; float32 max relative error {frel:.3g}")
+    copy_row = check_copy_add()
 
     # the entry points at their defaults, each counted on its own
     probes.reset_launches()
@@ -481,18 +597,72 @@ def phase_probes(results):
     results["vpu_chain"] = {
         "max_abs_err": vpu_err, "bit_exact": True, "float32_max_rel_err": frel,
         "launches": vpu_launches, "ms": vpu["t_long_s"] * 1e3,
-        "plain_ms": event_ms(lambda: probes.vpu_chain_plain(a, b, k), 1),
+        "plain_ms": plain_ms(lambda: probes.vpu_chain_plain(a, b, k), 1),
         "library_ms": None, "bytes": 3 * 4 * rows * n, "imads": k * rows * n,
         "lanes": rows * n, "source": PROBE_SOURCE}
-    results["copy_add"] = {
-        "max_abs_err": int((cgot.to(torch.int64) - cwant.to(torch.int64)).abs().max()),
-        "bit_exact": True, "launches": copy_launches,
-        "ms": event_ms(lambda: probes.copy_add(ca, cb), 50),
-        "plain_ms": event_ms(lambda: probes.copy_add_plain(ca, cb), 10),
-        "library_ms": event_ms(lambda: torch.add(ca, cb), 50),
-        "bytes": 3 * 96 * ca.shape[1], "imads": 0, "lanes": ca.shape[1],
-        "source": PROBE_SOURCE}
+    copy_row.update(launches=copy_launches, source=PROBE_SOURCE)
+    results["copy_add"] = copy_row
     return rates
+
+
+def check_copy_add() -> dict:
+    """copy_add bit for bit against its plain version at mmbench's 24 x
+    2^16 limbs, at 24 x 2^20, at an odd element count, with operands 4
+    or 8 bytes off 16-byte alignment, and on a non-contiguous slice
+    (which the wrapper copies before the launch); then the l2bench entry
+    point at its defaults.  Returns the kernel table row at mmbench's
+    shape: ms and library_ms by the guarded event timer, device_ms and
+    library_device_ms by the profiler, a bound of the bytes at the
+    fastest L2 rate l2bench measured (the row names its source), the
+    shares of that bound in device time, and the 24 x 2^20 figures under
+    their own keys (bound: the bytes at 3.35 TB/s)."""
+    import torch
+
+    from gemini_tpu_torch.benches import l2bench, probes
+
+    ca = l2bench.limbs(16, 6, "cuda")
+    cb = ca.flip(1).contiguous()
+    fa, fb = ca.reshape(-1), cb.reshape(-1)
+    m = fa.numel() - 3  # odd
+    cases = {
+        "24 x 2^16": (ca, cb),
+        "24 x 2^20": (l2bench.limbs(20, 7, "cuda"), l2bench.limbs(20, 8, "cuda")),
+        f"{m} elements (odd)": (fa[:m], fb[:m]),
+        "both operands 4 bytes off 16-byte alignment, odd count": (fa[1:1 + m],
+                                                                   fb[1:1 + m]),
+        "operands 4 and 8 bytes off, odd count": (fa[1:1 + m], fb[2:2 + m]),
+        "ca[:, 1:], not contiguous (the wrapper's copy)": (ca[:, 1:], cb[:, 1:]),
+    }
+    err = 0
+    for what, (a, b) in cases.items():
+        got, want = probes.copy_add(a, b), probes.copy_add_plain(a, b)
+        err = max(err, int((got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"copy_add differs from its plain version at {what}")
+    log(f"copy_add: bit-exact against plain at {', '.join(cases)}")
+    del cases
+
+    bench = l2bench.main()
+    small, big = bench["24x2^16"], bench["24x2^20"]
+    l2 = small["l2"]
+    bound = small["bytes"] / l2["rate"] * 1e3
+    bound_big = big["bytes"] / HBM_BYTES_PER_S * 1e3
+    own, lib = small["shapes"]["copy_add"], small["shapes"]["torch.add"]
+    own_big, lib_big = big["shapes"]["copy_add"], big["shapes"]["torch.add"]
+    return {
+        "max_abs_err": err, "bit_exact": True, "ms": own["ms"],
+        "device_ms": own["device_ms"],
+        "plain_ms": plain_ms(lambda: probes.copy_add_plain(ca, cb), 3),
+        "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
+        "bytes": small["bytes"], "imads": 0, "lanes": ca.shape[1],
+        "bound_ms": bound, "bound_by": "bytes", "bound_rate_bytes_per_s": l2["rate"],
+        "bound_rate_from": f"the L2: fastest move of the same bytes, {l2['rate_from']}",
+        "ms_24x2^20": own_big["ms"], "device_ms_24x2^20": own_big["device_ms"],
+        "library_ms_24x2^20": lib_big["ms"],
+        "library_device_ms_24x2^20": lib_big["device_ms"],
+        "bound_ms_24x2^20": bound_big,
+        "bound_share_24x2^20": bound_big / own_big["device_ms"],
+        "library_bound_share_24x2^20": bound_big / lib_big["device_ms"]}
 
 
 def phase_group_api(results):
@@ -729,6 +899,8 @@ def phase_full(results, jacobian: bool):
 OWN_KERNELS = {"padd01_kernel": "padd01", "padd_kernel": "padd",
                "mont_mul_kernel": "mont_mul", "add_kernel": "add",
                "dbl_kernel": "dbl"}
+ALL_KERNELS = {**OWN_KERNELS, "vpu_chain_kernel": "vpu_chain",
+               "copy_add_kernel": "copy_add"}
 
 
 def own_kernel(name: str):
@@ -798,10 +970,10 @@ def device_profile(fn):
 
 
 def phase_profile(results, msm_in, r1cs, ck):
-    """6: torch.profiler over one projective MSM at 2^20 and one
-    projective 2^18 prove, after the timed runs.  Without device events
-    in the trace, says so and gives sum(lanes x per-lane time at 2^20)
-    for the prove instead."""
+    """6: torch.profiler over one projective MSM at 2^20, one Jacobian
+    MSM at 2^20 (GEMINI_TPU_PROJ=0) and one projective 2^18 prove, after
+    the timed runs.  Without device events in the trace, says so and
+    gives sum(lanes x per-lane time at 2^20) instead."""
     import torch
 
     from gemini_tpu_torch.curve import g1_kernels as gk
@@ -812,12 +984,17 @@ def phase_profile(results, msm_in, r1cs, ck):
         msm(*msm_in)
         torch.cuda.synchronize()
 
+    def run_msm_jacobian():
+        with jacobian_config():
+            run_msm()
+
     def run_prove():
         Proof.new_time(r1cs, ck)
         torch.cuda.synchronize()
 
     out = {}
-    for label, fn in (("msm_2^20", run_msm), ("prove_2^18", run_prove)):
+    for label, fn in (("msm_2^20", run_msm), ("msm_2^20_jacobian", run_msm_jacobian),
+                      ("prove_2^18", run_prove)):
         gk.reset_launches()
         t0 = time.time()
         prof = device_profile(fn)
@@ -833,31 +1010,119 @@ def phase_profile(results, msm_in, r1cs, ck):
     log(json.dumps({"profile": out}))
 
 
-def kernel_rows(results, rates):
+def needs_dbl_lanes(p, q):
+    """add's doubling predicate on each lane of a launch's operands, by
+    the plain version's canonical field ops: h = r = 0 (u1 = u2 and
+    s1 = s2) with neither operand the identity.  (n,) bool in the
+    kernel's lane order."""
+    import torch
+
+    from gemini_tpu_torch.curve import g1_kernels as gk
+
+    x1, y1, z1, x2, y2, z2 = (t.reshape(24, -1).to(torch.int64) for t in (*p, *q))
+    z1z1, z2z2 = gk._mm(z1, z1), gk._mm(z2, z2)
+    same_u = (gk._mm(x1, z2z2) == gk._mm(x2, z1z1)).all(0)
+    same_s = (gk._mm(gk._mm(y1, z2), z2z2) == gk._mm(gk._mm(y2, z1), z1z1)).all(0)
+    return same_u & same_s & (z1 != 0).any(0) & (z2 != 0).any(0)
+
+
+def phase_count_dbl(msm_in, r1cs, ck):
+    """Untimed: one extra Jacobian MSM at 2^20 and one extra Jacobian
+    2^18 prove with every add launch's operands counted: the share of
+    lanes that need the doubling, and of 32-lane warps (the kernel's
+    warps: lanes 32k..32k+31 of a launch) that hold one and so run the
+    doubling branch.  The operands are copied at each launch and the
+    predicate runs on about 2^20 lanes at a time."""
+    import torch
+
+    from gemini_tpu_torch.curve import g1_kernels as gk
+    from gemini_tpu_torch.ops.msm import msm
+    from gemini_tpu_torch.snark import Proof
+
+    orig = gk.add
+    out = {}
+    for label, fn in (("msm_2^20_jacobian", lambda: msm(*msm_in)),
+                      ("prove_2^18_jacobian", lambda: Proof.new_time(r1cs, ck))):
+        c = {"launches": 0, "lanes": 0, "dbl_lanes": 0, "warps": 0, "dbl_warps": 0}
+        held = []
+
+        def count():
+            p = [torch.cat([h[k] for h in held], 1) for k in range(3)]
+            q = [torch.cat([h[k] for h in held], 1) for k in range(3, 6)]
+            nds = needs_dbl_lanes(p, q).split([h[0].shape[1] for h in held])
+            for nd in nds:
+                warps = torch.nn.functional.pad(nd, (0, -nd.numel() % 32)).reshape(-1, 32)
+                c["lanes"] += nd.numel()
+                c["dbl_lanes"] += int(nd.sum())
+                c["warps"] += warps.shape[0]
+                c["dbl_warps"] += int(warps.any(1).sum())
+            held.clear()
+
+        def counted(p, q):
+            held.append([t.reshape(24, -1).clone() for t in (*p, *q)])
+            c["launches"] += 1
+            if sum(h[0].shape[1] for h in held) >= 1 << 20:
+                count()
+            return orig(p, q)
+
+        gk.add = counted
+        try:
+            with jacobian_config():
+                fn()
+        finally:
+            gk.add = orig
+        if held:
+            count()
+        torch.cuda.synchronize()
+        c["dbl_lane_share"] = c["dbl_lanes"] / max(c["lanes"], 1)
+        c["dbl_warp_share"] = c["dbl_warps"] / max(c["warps"], 1)
+        out[label] = c
+    log(json.dumps({"needs_dbl": out}))
+
+
+def kernel_rows(results, rates, usage):
     """The kernel table: every kernel with its bound under the data
-    sheet's IMAD rate and under the rate vpubench measured."""
+    sheet's IMAD rate and under the rate vpubench measured (copy_add: its
+    bytes at the measured L2 rate, see check_copy_add), ptxas's registers
+    and spills, and its share of its bound: bound_ms / ms, or bound_ms /
+    device_ms where the row has the profiler's device time (copy_add,
+    whose 3-5 us launches the events time with the gaps between them);
+    for the library call likewise."""
     rows = []
     for name in KERNELS:
         r = results[name]
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["imads"] / IMAD_PER_S * 1e3
         t_ops_meas = r["imads"] / rates["imad_per_s"] * 1e3
+        bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        bound_meas = max(t_bytes, t_ops_meas)
+        by_meas = "bytes" if t_bytes >= t_ops_meas else "operations"
+        if "bound_ms" in r:
+            bound = bound_meas = r["bound_ms"]
+            by = by_meas = r["bound_by"]
         rows.append({
             "name": name, "route": "cuda", "source": r["source"],
             "replaces": REPLACES[name], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "plain_ms": r["plain_ms"], "bound_ms": bound,
+            "bound_by": by,
             "library_ms": r["library_ms"],
-            "bound_ms_measured_rate": max(t_bytes, t_ops_meas),
-            "bound_by_measured_rate": "bytes" if t_bytes >= t_ops_meas else "operations",
+            "bound_ms_measured_rate": bound_meas,
+            "bound_by_measured_rate": by_meas,
+            "bound_share": bound / r.get("device_ms", r["ms"]),
+            "library_bound_share": (bound / r.get("library_device_ms", r["library_ms"])
+                                    if r["library_ms"] else None),
             "bit_exact": r["bit_exact"], "lanes": r["lanes"],
+            **usage.get(name, {}),
         })
-        for key in ("ms_2^14", "lanes_per_prove"):
-            if key in r:
-                rows[-1][key] = r[key]
-        if "float32_max_rel_err" in r:
-            rows[-1]["float32_max_rel_err"] = r["float32_max_rel_err"]
+        if name == "add":
+            rows[-1]["bound_ms_23_products"] = (
+                r["lanes"] * ADD_WORD_PRODUCTS_23MM * 2 / IMAD_PER_S * 1e3)
+        for key, v in r.items():
+            if key.startswith(("ms_", "lanes_per", "float32", "device_ms",
+                               "library_device", "library_ms_", "bound_ms_",
+                               "bound_rate", "bound_share_", "library_bound_share_")):
+                rows[-1][key] = v
     return rows
 
 
@@ -871,21 +1136,29 @@ def main() -> int:
     import gemini_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     t_start = time.time()
-    build_all()
+    usage = build_all()
     card = card_line()
     log(card)
     results = {}
-    phase_kernels(results)
-    rates = phase_probes(results)
-    phase_group_api(results)
-    msm_in = phase_msm()
-    phase_golden()
-    r1cs, ck = phase_full(results, jacobian=False)
+
+    def phase(label, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        log(f"phase {label}: {time.time() - t0:.1f} s")
+        return out
+
+    phase("2 kernels", phase_kernels, results)
+    rates = phase("2b probes", phase_probes, results)
+    phase("2c group API", phase_group_api, results)
+    msm_in = phase("3 MSM", phase_msm)
+    phase("4 golden", phase_golden)
+    r1cs, ck = phase("5 projective 2^18", phase_full, results, False)
     with jacobian_config():
-        phase_full(results, jacobian=True)
-    phase_profile(results, msm_in, r1cs, ck)
+        r1cs_j, ck_j = phase("5b Jacobian 2^18", phase_full, results, True)
+    phase("6 profile", phase_profile, results, msm_in, r1cs, ck)
+    phase("6b needs_dbl count", phase_count_dbl, msm_in, r1cs_j, ck_j)
     log(f"total: {time.time() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernel_rows(results, rates)}))
+    log(json.dumps({"kernels": kernel_rows(results, rates, usage)}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,7 +51,7 @@ def _launch(name, fn, a, b, *extra):
                              f"device, got {t.device}")
         if t.dtype != a.dtype or t.shape != a.shape or not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous and alike")
-    out = torch.empty_like(a)
+    out = torch.empty_like(a)  # fresh, so 16-byte aligned as copy_add's kernel needs
     lib = cuda_lib.library("probes", _bind)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -17,6 +17,8 @@
 //   radd     a + b, minus 2p when the sum is >= 2p (_F.radd)
 //   rsub     a - b, plus 2p on a borrow            (_F.rsub)
 //   mm       redc(a*b) reduced into [0, p)         (_F.mm)
+//   canon    [0, 2p) reduced into [0, p)
+//   is_zero_rel  a in [0, 2p) is 0 mod p (a = 0 or a = p)
 //   fadd, fdbl, fsub, is_zero: the canonical ops (_F.fadd/fdbl/fsub)
 // Additions and subtractions are taken mod 2^384, dropping carries off
 // the top exactly where the reference drops them.
@@ -387,7 +389,9 @@ __device__ __forceinline__ F mont_core(const F& a, const B& b, const F& c,
   return r;
 }
 
-__device__ __forceinline__ F rmm(const F& a, const F& b) {
+// b may be a word source other than F (see mont_core).
+template <class B>
+__device__ __forceinline__ F rmm(const F& a, const B& b) {
   return mont_core<false>(a, b, a, b);
 }
 
@@ -402,13 +406,26 @@ __device__ __forceinline__ F rmm_sub(const F& a, const F& b, const F& c, const F
   return rmm_add(a, b, c, rneg(d));
 }
 
-// Canonical Montgomery product: inputs < p, output in [0, p).
-__device__ __forceinline__ F mm(const F& a, const F& b) {
-  F r = rmm(a, b);
+// [0, 2p) -> [0, p): minus p unless that borrows.
+__device__ __forceinline__ F canon(const F& a) {
   u32 br;
-  F d = sub_raw(r.w, P, br);
-  return select(br != 0, r, d);
+  F d = sub_raw(a.w, P, br);
+  return select(br != 0, a, d);
 }
+
+// a in [0, 2p) is 0 mod p: a = 0 or a = p.
+__device__ __forceinline__ bool is_zero_rel(const F& a) {
+  u32 z = 0, e = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    z |= a.w[k];
+    e |= a.w[k] ^ P[k];
+  }
+  return z == 0 || e == 0;
+}
+
+// Canonical Montgomery product: inputs < p, output in [0, p).
+__device__ __forceinline__ F mm(const F& a, const F& b) { return canon(rmm(a, b)); }
 
 // Canonical domain (inputs < p, outputs < p): the Jacobian group law's
 // field ops, with the integer semantics of `_F.fadd` / `_F.fsub` for

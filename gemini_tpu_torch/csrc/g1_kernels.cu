@@ -1,7 +1,7 @@
 // Hand-written Hopper kernels for the G1 group law and the Fq Montgomery
 // product: the port of the five Pallas kernels of
-// gemini_tpu/curve/pallas_g1.py (padd and padd01 redesigned for the
-// H100, the others sharing their field core).
+// gemini_tpu/curve/pallas_g1.py (padd, padd01 and add redesigned for
+// the H100, mont_mul and dbl sharing their field core).
 //
 //   g1_padd      replaces gemini_tpu/curve/pallas_g1.py `_padd_kernel`
 //                (complete RCB projective add, Renes-Costello-Batina
@@ -11,22 +11,22 @@
 //                with z in {0, 1} given as masks; 9 products).
 //   g1_mont_mul  replaces `_mm_kernel` (canonical a*b*2^-384 mod p), the
 //                core the other two share.
-//   g1_add       replaces `_add_kernel` (complete Jacobian add-2007-bl,
-//                16 canonical products, with the dbl-2009-l result (7
-//                more) selected where h = r = 0, then the identity
-//                selects on z1 = 0 and z2 = 0, in that order).
+//   g1_add       replaces `_add_kernel` (complete Jacobian add-2007-bl;
+//                where h = r = 0 the dbl-2009-l result; then the
+//                identity selects on z1 = 0 and z2 = 0, in that order),
+//                redesigned: 16 relaxed products, 15 reductions.
 //   g1_dbl       replaces `_dbl_kernel` (Jacobian dbl-2009-l, 7
 //                canonical products).
 //
-// Layout: every coordinate is (24, *batch) int32 16-bit limbs.  padd and
-// padd01 read their operands as the MSM hands them (halves of a
+// Layout: every coordinate is (24, *batch) int32 16-bit limbs.  padd,
+// padd01 and add read their operands as the MSM hands them (halves of a
 // (24, W, n) tensor, stride-2 even/odd views, the SRS tree's transposed
 // halves; bool masks as they are) through a (limb, row, lane) stride
 // triple per operand, so no copy runs before them; every output is a
-// contiguous (24, n).  mont_mul, add and dbl take contiguous (24, n).
+// contiguous (24, n).  mont_mul and dbl take contiguous (24, n).
 // One thread per lane; limbs are repacked into 12 32-bit words in
-// registers (fq.cuh).  Selects instead of branches, so warps never
-// diverge on identity or doubling lanes.
+// registers (fq.cuh).  padd and padd01 select instead of branching, so
+// their warps never diverge; add branches on rare lanes (below).
 //
 // What bounds them on an H100: 32-bit integer multiply-add issue.  A
 // 12-word product is 144 32x32->64 word products and a word-serial REDC
@@ -36,7 +36,8 @@
 // 16.75 T IMAD/s.  Memory is the smaller bound: a padd moves 864 bytes
 // per lane (6 coordinates in, 3 out), 71% of its operations bound.
 //
-// The design (padd and padd01; mont_mul, add and dbl share the core):
+// The design (padd and padd01; mont_mul, add and dbl share the core,
+// add's own design is below):
 // - fq.cuh's Montgomery core runs CIOS on the carry flag, so each word
 //   product is one IMAD.WIDE.U32(.X) and the instruction count is close
 //   to the bound's (chip_smoke.py's `sass` line: padd 5680 instructions,
@@ -68,15 +69,35 @@
 // - A (12, n) word layout would halve the bytes, but (24, n) 16-bit
 //   limbs are the whole pipeline's contract; a pipeline change.
 //
-// g1_add and g1_dbl work in the canonical domain ([0, p), fq::mm and
-// fq::fadd/fsub/fdbl), so any correct implementation of the same
-// formulas gives the same limbs.  A canonical product is 2 * 144 word
-// products, so g1_add issues 23 * 288 (about 2.2x a padd: it computes
-// the doubling of p beside the add for the P = Q select) and g1_dbl
-// 7 * 288.  At 2^20 lanes their operations bounds (about 0.83 and
-// 0.25 ms at the data sheet's IMAD rate) lie above their bytes bounds
-// (864 and 576 bytes per lane: 0.27 and 0.18 ms).  g1_add keeps both
-// results live until the selects, so it needs more registers than padd.
+// g1_dbl works in the canonical domain ([0, p), fq::mm and
+// fq::fadd/fdbl/fsub): 7 * 288 word products, an operations bound of
+// about 0.25 ms at 2^20 lanes (bytes: 576 per lane, 0.18 ms).
+//
+// g1_add's outputs are canonical residues, so any correct computation
+// of the same field values gives the reference's limbs.  The design:
+// - Relaxed inside: fq::rmm products in [0, 2p), canonicalised only for
+//   the outputs (fq::canon); h and r are tested for zero as relaxed
+//   values (0 mod p iff 0 or p).  y3 = r (V - x3) - 2 s1 J is one
+//   rmm_add (two products, one reduction).  Field-identical rewrite:
+//   z3 = ((z1 + z2)^2 - z1^2 - z2^2) h = 2 z1 z2 h = rmm(z1 z2, 2h).
+//   Total per lane: 16 products and 15 reductions, 31 * 144 word
+//   products (the first design: 23 canonical products, 23 * 288, with
+//   the doubling on every lane).
+// - The doubling runs only where its result survives: needs_dbl = h = 0
+//   and r = 0 and neither operand the identity, under a warp-uniform
+//   branch (__any_sync), from operands read again.  The z tests matter:
+//   O + O lanes also have h = r = 0, and the MSM's padding and empty
+//   buckets are full of them.  Identity lanes store the other operand,
+//   read again.  Every lane first stores the add's result, and the rare
+//   lanes store over it.
+// - Register budget: __launch_bounds__(128, 3), 168 registers, no
+//   spills (at 4 blocks it spilled); each output is stored as soon as it
+//   is known, and the values that later enter products only as word
+//   operands are parked in shared memory (z1 z2, z1^2, z2^2 and s1, then
+//   V - x3), the order of the products chosen for that (a*b = b*a).
+//   Launch shape from threads_for, as padd's.
+// At 2^20 lanes the operations bound is about 0.56 ms at the data
+// sheet's IMAD rate (bytes: 864 per lane, 0.27 ms).
 
 #include <cuda_runtime.h>
 
@@ -91,6 +112,7 @@ constexpr int kThreads = 128;
 // registers for padd, 128 for padd01; see the note above).
 constexpr int kPaddMinBlocks = 3;
 constexpr int kPadd01MinBlocks = 4;
+constexpr int kAddMinBlocks = 3;
 
 __global__ void __launch_bounds__(kThreads)
     mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
@@ -249,51 +271,87 @@ __global__ void __launch_bounds__(kThreads)
   fq::store(oz, n, j, z3);
 }
 
-// _add_core: add-2007-bl, then the doubling where h = r = 0 (P = Q),
-// then p = O -> q, then q = O -> p (both O: p).
-__global__ void __launch_bounds__(kThreads)
-    add_kernel(const int32_t* __restrict__ px1, const int32_t* __restrict__ py1,
-               const int32_t* __restrict__ pz1, const int32_t* __restrict__ px2,
-               const int32_t* __restrict__ py2, const int32_t* __restrict__ pz2,
-               int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-               int32_t* __restrict__ oz, long long n) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const F x1 = fq::load(px1, n, j), y1 = fq::load(py1, n, j), z1 = fq::load(pz1, n, j);
-  const F x2 = fq::load(px2, n, j), y2 = fq::load(py2, n, j), z2 = fq::load(pz2, n, j);
-  F z1z1 = fq::mm(z1, z1);
-  F z2z2 = fq::mm(z2, z2);
-  F u1 = fq::mm(x1, z2z2);
-  F u2 = fq::mm(x2, z1z1);
-  F s1 = fq::mm(fq::mm(y1, z2), z2z2);
-  F s2 = fq::mm(fq::mm(y2, z1), z1z1);
-  F h = fq::fsub(u2, u1);
-  F h2 = fq::fdbl(h);
-  F i = fq::mm(h2, h2);
-  F jj = fq::mm(h, i);
-  F r = fq::fdbl(fq::fsub(s2, s1));
-  F v = fq::mm(u1, i);
-  F x3 = fq::fsub(fq::fsub(fq::mm(r, r), jj), fq::fdbl(v));
-  F y3 = fq::fsub(fq::mm(r, fq::fsub(v, x3)), fq::fdbl(fq::mm(s1, jj)));
-  F zs = fq::fadd(z1, z2);
-  F z3 = fq::mm(fq::fsub(fq::mm(zs, zs), fq::fadd(z1z1, z2z2)), h);
+// Stores lane j's point from operands x, y, z, as read.
+__device__ __forceinline__ void store_point(const Operand& x, const Operand& y,
+                                            const Operand& z, unsigned b, unsigned i,
+                                            int32_t* __restrict__ ox,
+                                            int32_t* __restrict__ oy,
+                                            int32_t* __restrict__ oz, unsigned n,
+                                            unsigned j) {
+  fq::store(ox, n, j, load_op(x, b, i));
+  fq::store(oy, n, j, load_op(y, b, i));
+  fq::store(oz, n, j, load_op(z, b, i));
+}
 
-  const bool same = fq::is_zero(h) && fq::is_zero(r);
-  const bool p_inf = fq::is_zero(z1), q_inf = fq::is_zero(z2);
-  F xd, yd, zd;
-  dbl_core(x1, y1, z1, xd, yd, zd);
-  x3 = fq::select(same, xd, x3);
-  y3 = fq::select(same, yd, y3);
-  z3 = fq::select(same, zd, z3);
-  x3 = fq::select(p_inf, x2, x3);
-  y3 = fq::select(p_inf, y2, y3);
-  z3 = fq::select(p_inf, z2, z3);
-  x3 = fq::select(q_inf, x1, x3);
-  y3 = fq::select(q_inf, y1, y3);
-  z3 = fq::select(q_inf, z1, z3);
-  fq::store(ox, n, j, x3);
-  fq::store(oy, n, j, y3);
-  fq::store(oz, n, j, z3);
+// _add_core (add-2007-bl; the doubling where h = r = 0; p = O -> q;
+// q = O -> p, both O: p), redesigned (see the header): relaxed products,
+// each output canonicalised and stored as soon as it is known; then the
+// lanes whose result is not the add's store again: the doubling (in
+// warps that hold such a lane) and the identity lanes, from operands
+// read again.
+__global__ void __launch_bounds__(kThreads, kAddMinBlocks)
+    add_kernel(const Operands in, int32_t* __restrict__ ox,
+               int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+               unsigned n, unsigned cols) {
+  unsigned j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  unsigned b = j / cols, i = j - b * cols;
+  __shared__ volatile uint32_t sm[4][fq::NW][kThreads];
+  F r, u1, h;
+  bool p_inf, q_inf;
+  const Parked zz = {&sm[2][0][threadIdx.x]}, s1 = {&sm[3][0][threadIdx.x]};
+  {
+    const F z1 = load_op(in.o[2], b, i), z2 = load_op(in.o[5], b, i);
+    p_inf = fq::is_zero(z1);
+    q_inf = fq::is_zero(z2);
+    park(zz.s, fq::rmm(z1, z2));
+    const Parked z1z1 = park(&sm[0][0][threadIdx.x], fq::rmm(z1, z1));
+    const Parked z2z2 = park(&sm[1][0][threadIdx.x], fq::rmm(z2, z2));
+    const F y1z2z2z2 = fq::rmm(fq::rmm(load_op(in.o[1], b, i), z2), z2z2);  // s1
+    park(s1.s, y1z2z2z2);
+    r = fq::rmm(fq::rmm(load_op(in.o[4], b, i), z1), z1z1);  // s2 = y2 z1^3
+    r = fq::rsub(r, y1z2z2z2);
+    r = fq::radd(r, r);                                      // 2 (s2 - s1)
+    u1 = fq::rmm(load_op(in.o[0], b, i), z2z2);              // x1 z2^2
+    h = fq::rsub(fq::rmm(load_op(in.o[3], b, i), z1z1), u1);  // u2 - u1
+  }
+  const bool same = fq::is_zero_rel(h) && fq::is_zero_rel(r);
+  const F h2 = fq::radd(h, h);
+  j = lane_index();
+  fq::store(oz, n, j, fq::canon(fq::rmm(h2, zz)));  // 2 z1 z2 h
+  const F ii = fq::rmm(h2, h2);                     // I = (2h)^2
+  const F jj = fq::rmm(h, ii);                      // J = h I
+  const F v = fq::rmm(u1, ii);                      // V = u1 I
+  const F x3 = fq::rsub(fq::rsub(fq::rmm(r, r), jj), fq::radd(v, v));
+  fq::store(ox, n, j, fq::canon(x3));
+  // y3 = r (V - x3) - 2 s1 J, one reduction; V - x3 and s1 enter as
+  // word operands only.
+  const Parked w = park(&sm[0][0][threadIdx.x], fq::rsub(v, x3));
+  fq::store(oy, n, j, fq::canon(fq::rmm_add(r, w, fq::rneg(fq::radd(jj, jj)), s1)));
+
+  const bool needs_dbl = same && !p_inf && !q_inf;
+  if (__any_sync(__activemask(), needs_dbl)) {  // uniform in the warp
+    j = lane_index();
+    b = j / cols;
+    i = j - b * cols;
+    F xd, yd, zd;
+    dbl_core(load_op(in.o[0], b, i), load_op(in.o[1], b, i), load_op(in.o[2], b, i),
+             xd, yd, zd);
+    if (needs_dbl) {
+      fq::store(ox, n, j, xd);
+      fq::store(oy, n, j, yd);
+      fq::store(oz, n, j, zd);
+    }
+  }
+  if (p_inf || q_inf) {
+    j = lane_index();
+    b = j / cols;
+    i = j - b * cols;
+    if (q_inf)
+      store_point(in.o[0], in.o[1], in.o[2], b, i, ox, oy, oz, n, j);
+    else
+      store_point(in.o[3], in.o[4], in.o[5], b, i, ox, oy, oz, n, j);
+  }
 }
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -358,13 +416,12 @@ extern "C" int g1_padd01(const long long* desc, int32_t* ox, int32_t* oy,
   return (int)cudaGetLastError();
 }
 
-extern "C" int g1_add(const int32_t* x1, const int32_t* y1, const int32_t* z1,
-                      const int32_t* x2, const int32_t* y2, const int32_t* z2,
-                      int32_t* ox, int32_t* oy, int32_t* oz, long long n,
-                      void* stream) {
+extern "C" int g1_add(const long long* desc, int32_t* ox, int32_t* oy,
+                      int32_t* oz, long long n, long long cols, void* stream) {
   if (n <= 0) return 0;
-  add_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      x1, y1, z1, x2, y2, z2, ox, oy, oz, n);
+  int t = threads_for(n);
+  add_kernel<<<(unsigned)((n + t - 1) / t), t, 0, (cudaStream_t)stream>>>(
+      operands(desc), ox, oy, oz, (unsigned)n, (unsigned)cols);
   return (int)cudaGetLastError();
 }
 

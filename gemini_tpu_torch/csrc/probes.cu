@@ -15,12 +15,23 @@
 //       (24, n) int32 limbs (wrapping).  A chain of such launches at
 //       2^16 lanes is bound by launch latency plus 3 * 96 bytes per
 //       lane; it isolates the per-launch cost beside a chain of
-//       g1_mont_mul launches.
+//       g1_mont_mul launches.  Bound by bytes: at mmbench's 24 x 2^16
+//       limbs the 18.9 MB stay in the 50 MB L2 from launch to launch, at
+//       24 x 2^20 (302 MB) they stream from HBM.  So the kernel issues
+//       16-byte accesses (a quarter of the load and store instructions
+//       and L2 requests of 4-byte ones), one vector per thread in
+//       128-thread blocks, a block per 512 elements; an odd count is
+//       handled inside (a scalar tail), and an operand that is not
+//       16-byte aligned is read word by word.  benches/l2bench.py times
+//       the other launch shapes (2 or 4 vectors per thread with their
+//       loads issued before the adds, 256 or 512 threads, a grid of one
+//       wave of resident blocks striding over the vectors) beside this
+//       one.
 //
-// One thread per element, 128-thread blocks.  C interface for ctypes:
-// device pointers, the element count, the chain length where there is
-// one and the CUDA stream; each returns cudaGetLastError() after the
-// launch (0 = launched).
+// vpu_chain runs one thread per element in 128-thread blocks.  C
+// interface for ctypes: device pointers, the element count, the chain
+// length where there is one and the CUDA stream; each returns
+// cudaGetLastError() after the launch (0 = launched).
 
 #include <cuda_runtime.h>
 
@@ -55,12 +66,28 @@ __global__ void __launch_bounds__(kThreads)
   out[j] = acc;
 }
 
+// Four words at p: one 16-byte load where p is 16-byte aligned (`vec`,
+// the same for every thread of a launch), else four 4-byte loads.
+__device__ __forceinline__ uint4 load4(const uint32_t* __restrict__ p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  return make_uint4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+// out = a + b: one 16-byte vector of out per thread, and a scalar tail
+// for a count that is not a multiple of 4.  out is the wrapper's fresh
+// allocation, so 16-byte aligned; a and b are read as vectors where they
+// are 16-byte aligned, else word by word.
 __global__ void __launch_bounds__(kThreads)
     copy_add_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                     uint32_t* __restrict__ out, long long n) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  out[j] = a[j] + b[j];
+  const long long nvec = n >> 2;
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v < (n & 3)) out[4 * nvec + v] = a[4 * nvec + v] + b[4 * nvec + v];
+  if (v >= nvec) return;
+  const uint4 x = load4(a + 4 * v, ((uintptr_t)a & 15u) == 0);
+  const uint4 y = load4(b + 4 * v, ((uintptr_t)b & 15u) == 0);
+  reinterpret_cast<uint4*>(out)[v] =
+      make_uint4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
 }
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -86,6 +113,8 @@ extern "C" int probe_vpu_chain_f32(const float* a, const float* b, float* out,
 extern "C" int probe_copy_add(const uint32_t* a, const uint32_t* b, uint32_t* out,
                               long long n, void* stream) {
   if (n <= 0) return 0;
-  copy_add_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(a, b, out, n);
+  // a thread per 16-byte vector (at least 3 threads for the tail)
+  copy_add_kernel<<<blocks_for((n + 3) / 4), kThreads, 0, (cudaStream_t)stream>>>(
+      a, b, out, n);
   return (int)cudaGetLastError();
 }

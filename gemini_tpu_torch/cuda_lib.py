@@ -46,12 +46,12 @@ def _nvcc() -> str:
     return path
 
 
-def build(verbose: bool = False, stems=None) -> dict:
+def build(stems=None) -> dict:
     """Compile each csrc/*.cu (or only those named in `stems`) that has
     no library for the current sources yet, one nvcc process per source,
-    all running at once.  Returns {stem: library path}; raises with
-    nvcc's output on failure.  With `verbose`, prints ptxas's register
-    and spill report."""
+    all running at once.  Returns {stem: (library path, ptxas's register
+    and spill report, "" for a library built before)}; raises with
+    nvcc's output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     cus = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     libs = {os.path.splitext(os.path.basename(cu))[0]: cu for cu in cus}
@@ -59,6 +59,7 @@ def build(verbose: bool = False, stems=None) -> dict:
         libs = {stem: libs[stem] for stem in stems}
     out = {stem: os.path.join(BUILD_DIR, f"lib{stem}_{_tag(cu)}.so")
            for stem, cu in libs.items()}
+    reports = dict.fromkeys(libs, "")
     with open(os.path.join(BUILD_DIR, "kernels.lock"), "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         procs = {}
@@ -75,12 +76,11 @@ def build(verbose: bool = False, stems=None) -> dict:
             if proc.returncode != 0:
                 errors.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{so}\n{se}")
                 continue
-            if verbose:
-                print(f"[{stem}.cu]\n{se.strip()}", flush=True)
+            reports[stem] = se
             os.replace(tmp, out[stem])
         if errors:
             raise RuntimeError("\n".join(errors))
-    return out
+    return {stem: (out[stem], reports[stem]) for stem in libs}
 
 
 def library(stem: str, bind) -> ctypes.CDLL:
@@ -89,7 +89,7 @@ def library(stem: str, bind) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(stem)
         if lib is None:
-            lib = ctypes.CDLL(build(stems=[stem])[stem])
+            lib = ctypes.CDLL(build(stems=[stem])[stem][0])
             bind(lib)
             _libs[stem] = lib
     return lib

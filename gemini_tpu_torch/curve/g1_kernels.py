@@ -20,9 +20,9 @@ Contracts (the Pallas kernels'): coordinates are (24, *batch) int32
 output; `padd` takes inputs < 2p, returns outputs < 2p, identity
 (0 : y : 0); `padd01` takes (x, y, mask) operands with z = mask in
 {0, 1} and dead lanes (0 : y : 0); `add` and `double` take Jacobian
-(x, y, z) inputs < p, return outputs < p, identity z = 0.  The padd
-and padd01 kernels read their operands as laid out, views included
-(`lane_strides`), and bool masks as they are; the other kernels take
+(x, y, z) inputs < p, return outputs < p, identity z = 0.  The padd,
+padd01 and add kernels read their operands as laid out, views included
+(`lane_strides`), and bool masks as they are; mont_mul and dbl take
 contiguous copies.  Outputs are contiguous.
 
 `LAUNCHES` counts kernel launches and `LANES` the lanes they covered
@@ -53,16 +53,15 @@ def reset_launches() -> None:
         LANES[k] = 0
 
 
-STRIDED = ("padd", "padd01")  # kernels that read their operands' strides
+STRIDED = ("padd", "padd01", "add")  # kernels that read their operands' strides
 _Desc = ctypes.c_longlong * 24  # 6 operands x (pointer, 3 strides)
 
 
 def _bind(lib):
     p, n = ctypes.c_void_p, ctypes.c_longlong
     lib.g1_mont_mul.argtypes = [p, p, p, n, p]
-    for fn in (lib.g1_padd, lib.g1_padd01):
+    for fn in (lib.g1_padd, lib.g1_padd01, lib.g1_add):
         fn.argtypes = [p] * 4 + [n, n, p]
-    lib.g1_add.argtypes = [p] * 9 + [n, p]
     lib.g1_dbl.argtypes = [p] * 6 + [n, p]
     for fn in (lib.g1_mont_mul, lib.g1_padd, lib.g1_padd01, lib.g1_add,
                lib.g1_dbl):
@@ -70,8 +69,8 @@ def _bind(lib):
 
 
 def lane_strides(t, rows: int):
-    """(limb stride, batch stride, lane stride), in elements, of a padd /
-    padd01 operand: a (rows, *batch) coordinate view, or with rows = 0 a
+    """(limb stride, batch stride, lane stride), in elements, of a padd,
+    padd01 or add operand: a (rows, *batch) coordinate view, or with rows = 0 a
     (*batch) mask.  The kernel reads the batch as rows x cols, cols its
     last dim: the leading dims must merge into one stride (halves, even/odd
     splits and transposes of the MSM's (24, W, n) tensors do).  Raises
@@ -85,7 +84,7 @@ def lane_strides(t, rows: int):
     if len(shape) == 2:
         return ls, (strides[0] if shape[0] != 1 else 0), strides[1]
     if not shape:
-        raise ValueError("padd operands need a batch dimension")
+        raise ValueError("strided operands need a batch dimension")
     lead = [(s, st) for s, st in zip(shape[:-1], strides[:-1]) if s != 1]
     for (_, st0), (s1, st1) in zip(lead, lead[1:]):
         if st0 != st1 * s1:
@@ -114,8 +113,8 @@ def _check(name, tensors, rows):
 
 def _launch(name, fn, ins, n_out, rows):
     """Launch `fn` on `ins` ((rows, *batch) int32 coordinates; rows = 0 for
-    a mask); returns n_out contiguous (24, *batch) outputs.  padd and
-    padd01 take their operands as laid out (lane_strides); the other
+    a mask); returns n_out contiguous (24, *batch) outputs.  padd, padd01
+    and add take their operands as laid out (lane_strides); the other
     kernels take contiguous tensors."""
     dev, batch = _check(name, ins, rows)
     outs = [torch.empty((L, *batch), dtype=I32, device=dev) for _ in range(n_out)]
@@ -369,14 +368,14 @@ def padd01(p, q):
 
 def add(p, q):
     """Complete Jacobian add: p, q are (x, y, z) tuples of (24, *batch)
-    canonical coords; identity z = 0.  Canonical outputs."""
+    canonical coords; identity z = 0.  Canonical outputs.  The kernel
+    reads the operands as laid out (views included, lane_strides) and
+    returns contiguous (24, *batch) outputs."""
     shape = p[0].shape
-    ins = [_flat(t) for t in (*p, *q)]
-    if ins[0].device.type == "cpu":
-        outs = add_plain(*ins)
-    else:
-        outs = _launch("add", "g1_add", ins, 3, [L] * 6)
-    return tuple(o.reshape(shape) for o in outs)
+    if p[0].device.type == "cpu":
+        outs = add_plain(*(_flat(t) for t in (*p, *q)))
+        return tuple(o.reshape(shape) for o in outs)
+    return tuple(_launch("add", "g1_add", [*p, *q], 3, [L] * 6))
 
 
 def double(p):
