@@ -34,14 +34,25 @@ native host library from the sources in the checkout, then, in order:
   3. runs the kernel MSM pipeline at 2^16 against the host Pippenger and
      times it at 2^20 on bench.py's inputs, in the projective and in the
      Jacobian configuration (GEMINI_TPU_PROJ=0);
-  4. proves the golden instance on the card in both configurations and
-     compares the proof bytes with gemini_tpu's
-     (gemini_tpu_torch/testdata/snark_golden.json);
+  4. proves the SNARK and the pSNARK golden instances on the card in
+     both configurations, compares the proof bytes (and the pSNARK's
+     index commitments) with gemini_tpu's
+     (gemini_tpu_torch/testdata/{snark,psnark}_golden.json) and verifies
+     them, then parses gemini_tpu's pSNARK bytes with the port's
+     psnark_proof_from_bytes and verifies that proof on the card;
   5. proves and verifies the examples/snark.py -i 18 --time-prover
      instance (SRS built on the card), rejects a tampered proof, and
      shows that the prove went through padd, padd01 and mont_mul;
   5b. does the same under GEMINI_TPU_PROJ=0 and shows that the SRS and
      the prove went through the Jacobian add kernel and not padd/padd01;
+  5c. the pSNARK at 2^18 (examples/psnark.py -i 18): dummy_r1cs(Random(0),
+     2^18), SRS built on the card with max_degree = 2n + nnz + 2, index,
+     prove and verify each timed on the host clock ending in a
+     synchronize, the bytes -> parse -> verify round trip, tampered
+     zc_alpha and set_z_ep rejected; prints one JSON line with the
+     times, proof bytes, psnark::* spans, launches and lanes per kernel
+     (counts reset before the prove; padd, padd01 and mont_mul must
+     each launch), peak device memory and the card line;
   6. profiles one projective MSM at 2^20, one Jacobian MSM at 2^20 and
      one projective 2^18 prove with torch.profiler and prints, as one
      JSON line, each window's device busy share, device ms per kernel
@@ -57,6 +68,8 @@ Each kernel's launch count is read from its own path, with every count
 set to 0 just before the path runs: padd, padd01, mont_mul from the
 projective prove (5), add from the Jacobian prove (5b), dbl from the
 group API (2c), vpu_chain from vpubench, copy_add from mmbench (2b).
+The pSNARK prove's (5c) padd, padd01 and mont_mul launches are the
+table's `psnark_launches`.
 
 Any failure raises and the script exits non-zero; without a CUDA device
 it exits non-zero before printing a result.  Tolerance everywhere:
@@ -795,15 +808,50 @@ def phase_msm():
 # ---------------------------------------------------------------------------
 
 
+def golden_file(name: str) -> dict:
+    with open(os.path.join(HERE, "gemini_tpu_torch", "testdata", name)) as f:
+        return json.load(f)
+
+
+def psnark_golden(config):
+    """The pSNARK golden instance on the card: index commitments and
+    proof bytes equal gemini_tpu's, the proof verifies, and gemini_tpu's
+    proof read by the port's deserializer verifies."""
+    from gemini_tpu_torch.kzg.commit import CommitterKey, VerifierKey
+    from gemini_tpu_torch.psnark import Proof, index
+    from gemini_tpu_torch.relation import random_r1cs
+    from gemini_tpu_torch.serialize import (g1_compressed, psnark_proof_bytes,
+                                            psnark_proof_from_bytes)
+
+    g = golden_file("psnark_golden.json")
+    r1 = random_r1cs(random.Random(g["r1cs_seed"]), g["n"], row_nnz=g["row_nnz"],
+                     device="cuda")
+    ck = CommitterKey.new(max_degree=g["max_degree"],
+                          max_eval_points=g["max_eval_points"], seed=g["srs_seed"],
+                          device="cuda")
+    vk = VerifierKey.from_committer_key(ck)
+    idx = index(ck, r1)
+    if [g1_compressed(c).hex() for c in idx] != g["index_hex"]:
+        raise AssertionError(f"pSNARK golden index ({config}) differs from gemini_tpu's")
+    proof = Proof.new_time(ck, r1, idx)
+    if psnark_proof_bytes(proof).hex() != g["proof_hex"]:
+        raise AssertionError(f"pSNARK golden proof bytes ({config}) differ from "
+                             "gemini_tpu's")
+    proof.verify(r1, vk, idx, g["num_non_zero"])
+    psnark_proof_from_bytes(bytes.fromhex(g["proof_hex"])).verify(
+        r1, vk, idx, g["num_non_zero"])
+    log(f"pSNARK golden instance ({config}): index commitments and proof bytes "
+        "equal gemini_tpu's, proof verifies; gemini_tpu's proof, parsed by the "
+        "port, verifies")
+
+
 def phase_golden():
     from gemini_tpu_torch.kzg.commit import CommitterKey, VerifierKey
     from gemini_tpu_torch.relation import random_r1cs
     from gemini_tpu_torch.serialize import snark_proof_bytes
     from gemini_tpu_torch.snark import Proof
 
-    with open(os.path.join(HERE, "gemini_tpu_torch", "testdata",
-                           "snark_golden.json")) as f:
-        golden = json.load(f)
+    golden = golden_file("snark_golden.json")
 
     def prove(config):
         r1 = random_r1cs(random.Random(golden["r1cs_seed"]), golden["n"],
@@ -818,6 +866,7 @@ def phase_golden():
         proof.verify(r1, VerifierKey.from_committer_key(ck))
         log(f"golden instance ({config}): proof bytes equal gemini_tpu's, "
             "proof verifies")
+        psnark_golden(config)
 
     prove("projective")
     with jacobian_config():
@@ -889,6 +938,82 @@ def phase_full(results, jacobian: bool):
                     "setup_launches": setup_launches, "launches": launches,
                     "lanes": lanes, "tampered_rejected": True}))
     return r1cs, ck
+
+
+def phase_psnark(results, card):
+    """5c: the pSNARK at 2^18 (examples/psnark.py -i 18), projective.
+    Every check raises on failure."""
+    import torch
+
+    from gemini_tpu_torch.curve import g1_kernels as gk
+    from gemini_tpu_torch.kzg.commit import CommitterKey, VerifierKey
+    from gemini_tpu_torch.params import R
+    from gemini_tpu_torch.psnark import Proof, PsnarkVerificationError, index
+    from gemini_tpu_torch.relation import dummy_r1cs
+    from gemini_tpu_torch.relation.r1cs import joint_matrices
+    from gemini_tpu_torch.serialize import psnark_proof_bytes, psnark_proof_from_bytes
+    from gemini_tpu_torch.utils.trace import SpanTotals
+
+    logn = 18
+    n = 1 << logn
+    t0 = time.time()
+    r1cs = dummy_r1cs(random.Random(0), n, device="cuda")
+    nnz = joint_matrices(r1cs).num_non_zero
+    ck = CommitterKey.new(max_degree=2 * n + nnz + 2, max_eval_points=3, seed=0,
+                          device="cuda")
+    vk = VerifierKey.from_committer_key(ck)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+
+    t0 = time.time()
+    idx = index(ck, r1cs)
+    torch.cuda.synchronize()
+    index_s = time.time() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    with SpanTotals() as spans:
+        t0 = time.time()
+        proof = Proof.new_time(ck, r1cs, idx)
+        torch.cuda.synchronize()
+        prove_s = time.time() - t0
+    launches, lanes = dict(gk.LAUNCHES), dict(gk.LANES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("padd", "padd01", "mont_mul"):
+        if launches[name] == 0:
+            raise AssertionError(f"the 2^{logn} pSNARK prove launched no {name} kernel")
+        results[name]["psnark_launches"] = launches[name]
+        results[name]["psnark_lanes"] = lanes[name]
+
+    t0 = time.time()
+    proof.verify(r1cs, vk, idx, nnz)
+    torch.cuda.synchronize()
+    verify_s = time.time() - t0
+
+    raw = psnark_proof_bytes(proof)
+    parsed = psnark_proof_from_bytes(raw)
+    if psnark_proof_bytes(parsed) != raw:
+        raise AssertionError("pSNARK proof bytes do not survive a parse")
+    parsed.verify(r1cs, vk, idx, nnz)
+    for field in ("zc_alpha", "set_z_ep"):
+        bad = copy.deepcopy(proof)
+        setattr(bad, field, (getattr(bad, field) + 1) % R)
+        try:
+            bad.verify(r1cs, vk, idx, nnz)
+        except PsnarkVerificationError:
+            pass
+        else:
+            raise AssertionError(f"pSNARK proof with a tampered {field} accepted")
+    log(json.dumps({
+        "psnark_time_prover_logn": logn, "config": "projective", "num_non_zero": nnz,
+        "srs_max_degree": 2 * n + nnz + 2, "setup_s": setup_s, "index_s": index_s,
+        "prove_s": prove_s, "verify_s": verify_s, "proof_bytes": len(raw),
+        "round_trip_verified": True, "tampered_rejected": ["zc_alpha", "set_z_ep"],
+        "spans_ms": {k: v for k, v in spans.ms.items() if k.startswith("psnark::")},
+        "inner_spans_ms": {k: v for k, v in spans.ms.items()
+                           if not k.startswith("psnark::")},
+        "launches": launches, "lanes": lanes,
+        "max_memory_allocated_bytes": peak, "card": card}))
 
 
 # ---------------------------------------------------------------------------
@@ -1119,7 +1244,7 @@ def kernel_rows(results, rates, usage):
             rows[-1]["bound_ms_23_products"] = (
                 r["lanes"] * ADD_WORD_PRODUCTS_23MM * 2 / IMAD_PER_S * 1e3)
         for key, v in r.items():
-            if key.startswith(("ms_", "lanes_per", "float32", "device_ms",
+            if key.startswith(("ms_", "lanes_per", "psnark_", "float32", "device_ms",
                                "library_device", "library_ms_", "bound_ms_",
                                "bound_rate", "bound_share_", "library_bound_share_")):
                 rows[-1][key] = v
@@ -1155,6 +1280,7 @@ def main() -> int:
     r1cs, ck = phase("5 projective 2^18", phase_full, results, False)
     with jacobian_config():
         r1cs_j, ck_j = phase("5b Jacobian 2^18", phase_full, results, True)
+    phase("5c pSNARK 2^18", phase_psnark, results, card)
     phase("6 profile", phase_profile, results, msm_in, r1cs, ck)
     phase("6b needs_dbl count", phase_count_dbl, msm_in, r1cs_j, ck_j)
     log(f"total: {time.time() - t_start:.1f} s")

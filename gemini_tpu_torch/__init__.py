@@ -16,9 +16,10 @@ Layers (bottom-up):
   curve/          G1 points on limb tensors + the CUDA kernels
   ops/            MSM (sort-by-digit Pippenger), scans, poly, sparse
   kzg/            KZG polynomial commitment
-  subprotocols/   sumcheck, tensorcheck
-  relation/       R1CS frontend
+  subprotocols/   sumcheck, tensorcheck, plookup, entry product
+  relation/       R1CS frontend, joint sparsity (pSNARK index)
   snark/          non-preprocessing SNARK (time prover + verifier)
+  psnark/         preprocessing SNARK (index, time prover, verifier)
   interop.py      numpy arrays of gemini_tpu objects -> port objects
 """
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..fields.fp import FR
+from ..fields.fp import FR, to_tensor
 from ..ops import sparse
 from ..params import R
 
@@ -160,3 +160,68 @@ def random_r1cs(rng: _random.Random, num_constraints: int,
     out = R1cs(a=a, b=b, c=c, z_int=z, x_int=z[:num_inputs], device=device)
     assert out.is_satisfied()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Joint sparsity pattern for the preprocessing SNARK (misc.rs:269-366).
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class JointMatrices:
+    """Union sparsity of A, B, C in column-major order: field vectors
+    row/col (Montgomery, on the relation's device), index vectors (host
+    numpy int64, with int64 copies on the device for gathers), and the
+    per-matrix value vectors zero-filled on the union pattern."""
+
+    row: torch.Tensor
+    col: torch.Tensor
+    row_index: np.ndarray
+    col_index: np.ndarray
+    val_a: torch.Tensor
+    val_b: torch.Tensor
+    val_c: torch.Tensor
+    row_index_d: torch.Tensor = field(repr=False, default=None)
+    col_index_d: torch.Tensor = field(repr=False, default=None)
+
+    @property
+    def num_non_zero(self) -> int:
+        return len(self.row_index)
+
+
+def joint_matrices(r1cs: R1cs) -> JointMatrices:
+    """sum_matrices + joint_matrices (misc.rs:269-366): per column (in
+    increasing order), the sorted set of rows where any of A, B, C is
+    nonzero; values looked up per matrix with zero fill.
+
+    The union pattern is a numpy unique over packed (col, row) keys; each
+    matrix's values are encoded on the host (`FR.encode(vals_int)`),
+    scattered onto the union positions, and moved to the device once."""
+    from ..subprotocols.plookup import index_to_field
+
+    dev = r1cs.device
+    mats = (r1cs.a, r1cs.b, r1cs.c)
+    n_rows = max(m.n_rows for m in mats)
+    keys = [m.cols.astype(np.int64) * n_rows + m.rows.astype(np.int64)
+            for m in mats]
+    union = np.unique(np.concatenate(keys))  # sorted: col-major, row asc
+    row_index = union % n_rows
+    col_index = union // n_rows
+
+    def vals_on_union(m: SparseMatrix, key: np.ndarray) -> torch.Tensor:
+        limbs = np.zeros((FR.n_limbs, len(union)), dtype=np.uint32)
+        if len(key):
+            limbs[:, np.searchsorted(union, key)] = FR.encode(m.vals_int)
+        return to_tensor(limbs, dev)
+
+    return JointMatrices(
+        row=index_to_field(row_index, dev),
+        col=index_to_field(col_index, dev),
+        row_index=row_index,
+        col_index=col_index,
+        val_a=vals_on_union(mats[0], keys[0]),
+        val_b=vals_on_union(mats[1], keys[1]),
+        val_c=vals_on_union(mats[2], keys[2]),
+        row_index_d=torch.from_numpy(row_index).to(dev),
+        col_index_d=torch.from_numpy(col_index).to(dev),
+    )

@@ -2,7 +2,9 @@
 examples/snark.rs:17-41 memory watcher, SURVEY.md §5).
 
 Enable span printing with GEMINI_TPU_TRACE=1 (the analogue of
-building the reference with `--features print-trace`).
+building the reference with `--features print-trace`).  `SpanTotals`
+sums the spans that end while it is active, by label, with or without
+printing.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ def _enabled() -> bool:
 
 
 _depth = 0
+_totals: list = []  # the active SpanTotals
 
 
 def start_timer(label: str):
@@ -32,11 +35,33 @@ def end_timer(span) -> float:
     global _depth
     label, t0 = span
     dt = time.time() - t0
+    for totals in _totals:
+        totals.add(label, dt)
     if _enabled():
         _depth = max(0, _depth - 1)
         print(f"{'··' * _depth}End: {label} "
               f"{dt * 1000:.3f}ms", flush=True)
     return dt
+
+
+class SpanTotals:
+    """`with SpanTotals() as spans:` sums the spans ending inside the
+    block: `spans.ms[label]` (host clock) and `spans.count[label]`."""
+
+    def __init__(self):
+        self.ms: dict = {}
+        self.count: dict = {}
+
+    def add(self, label: str, dt: float) -> None:
+        self.ms[label] = self.ms.get(label, 0.0) + dt * 1e3
+        self.count[label] = self.count.get(label, 0) + 1
+
+    def __enter__(self):
+        _totals.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _totals.remove(self)
 
 
 class MemoryWatcher:
