@@ -39,7 +39,11 @@ native host library from the sources in the checkout, then, in order:
      index commitments) with gemini_tpu's
      (gemini_tpu_torch/testdata/{snark,psnark}_golden.json) and verifies
      them, then parses gemini_tpu's pSNARK bytes with the port's
-     psnark_proof_from_bytes and verifies that proof on the card;
+     psnark_proof_from_bytes and verifies that proof on the card; the
+     elastic prover (block size 8, threshold 2) gives the golden SNARK
+     bytes, and the dummy stream with the constant-base τ = 1 key gives
+     gemini_tpu's elastic bytes (testdata/elastic_golden.json), in both
+     configurations;
   5. proves and verifies the examples/snark.py -i 18 --time-prover
      instance (SRS built on the card), rejects a tampered proof, and
      shows that the prove went through padd, padd01 and mont_mul;
@@ -53,23 +57,39 @@ native host library from the sources in the checkout, then, in order:
      times, proof bytes, psnark::* spans, launches and lanes per kernel
      (counts reset before the prove; padd, padd01 and mont_mul must
      each launch), peak device memory and the card line;
-  6. profiles one projective MSM at 2^20, one Jacobian MSM at 2^20 and
-     one projective 2^18 prove with torch.profiler and prints, as one
+  5d. the elastic SNARK (examples/snark.py -i 24, BASELINE config 4):
+     DummyR1csStream(2^24, e = Random(0).randrange(1, R)) with
+     FakeCommitterKeyStream(3, seed=0, max_msm_buffer=2^20), block size
+     2^20, threshold 22.  First the 2^24 prove; then at 2^20 with
+     threshold 16 (four streaming rounds), whose bytes must equal the
+     time prover's on the dense twin (CommitterKey.new(2^20, 3, seed=0,
+     tau=1)); then the 2^24 proof verified against the dense relation,
+     a tampered zc_alpha rejected; prints one {"snark_elastic_logn": 24,
+     ...} JSON line (prove and verify seconds, proof bytes, peak device
+     memory, host RSS before the prove (after a heap trim), its peak and
+     the difference, spans, launches and lanes; padd and padd01 must
+     launch, counts reset before the prove) with the card line;
+  6. profiles one projective MSM at 2^20, one Jacobian MSM at 2^20, one
+     projective 2^18 prove and two streamed passes of the elastic prove
+     (a space-prover round over two 2^20 blocks, one 2^20 block of the
+     dummy stream's abc vector) with torch.profiler and prints, as one
      JSON line, each window's device busy share, device ms per kernel
      (the port's own and the ten largest others), the PyTorch copy
      kernels' device ms, and the lanes each group-law kernel took;
   6b. counts, untimed, the add lanes and warps that need the doubling in
      one more Jacobian MSM at 2^20 and one more Jacobian 2^18 prove;
-  7. prints the phases' seconds, the kernel table as one JSON line
+  7. prints the total seconds, the kernel table as one JSON line
      (bounds, shares of bound, ptxas registers and spills), the card
-     line, and as the last line {"ok": true, "device": {...}}.
+     line, and as the last line {"ok": true, "device": {...}}.  Each
+     phase prints its seconds and the host RSS at its start and end.
 
 Each kernel's launch count is read from its own path, with every count
 set to 0 just before the path runs: padd, padd01, mont_mul from the
 projective prove (5), add from the Jacobian prove (5b), dbl from the
 group API (2c), vpu_chain from vpubench, copy_add from mmbench (2b).
 The pSNARK prove's (5c) padd, padd01 and mont_mul launches are the
-table's `psnark_launches`.
+table's `psnark_launches`, the 2^24 elastic prove's (5d) its
+`elastic_launches`.
 
 Any failure raises and the script exits non-zero; without a CUDA device
 it exits non-zero before printing a result.  Tolerance everywhere:
@@ -125,6 +145,17 @@ REPLACES = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+def trim_host_heap() -> None:
+    """Collect garbage and hand freed heap pages back to the OS (glibc's
+    malloc_trim), so that an RSS read afterwards counts live memory and
+    not what earlier phases freed."""
+    import ctypes
+    import gc
+
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
 def card_line() -> str:
@@ -845,6 +876,38 @@ def psnark_golden(config):
         "port, verifies")
 
 
+def elastic_golden(config, r1, ck, proof_hex):
+    """The elastic prover on the card: the golden SNARK instance through
+    CommitterKeyStream(ck, max_msm_buffer=8), block size 8, threshold 2,
+    gives gemini_tpu's time-prover bytes; the dummy stream with the
+    constant-base (τ = 1) key of elastic_golden.json, where every MSM
+    bucket sums copies of one point, gives gemini_tpu's elastic bytes
+    and verifies."""
+    from gemini_tpu_torch.relation import DummyR1csStream
+    from gemini_tpu_torch.serialize import snark_proof_bytes
+    from gemini_tpu_torch.snark import Proof
+    from gemini_tpu_torch.streaming import CommitterKeyStream, FakeCommitterKeyStream
+
+    proof = Proof.new_elastic(r1, CommitterKeyStream(ck, max_msm_buffer=8),
+                              block_size=8, threshold=2)
+    if snark_proof_bytes(proof).hex() != proof_hex:
+        raise AssertionError(f"golden elastic proof bytes ({config}) differ from "
+                             "gemini_tpu's")
+    g = golden_file("elastic_golden.json")
+    stream = DummyR1csStream(g["n"], g["e"], device="cuda")
+    fake = FakeCommitterKeyStream(max_eval_points=g["max_eval_points"],
+                                  seed=g["srs_seed"],
+                                  max_msm_buffer=g["max_msm_buffer"], device="cuda")
+    proof = Proof.new_elastic(stream, fake, block_size=g["block_size"],
+                              threshold=g["threshold"])
+    if snark_proof_bytes(proof).hex() != g["proof_hex"]:
+        raise AssertionError(f"dummy-stream elastic proof bytes ({config}) differ "
+                             "from gemini_tpu's")
+    proof.verify(stream.to_dense(), fake.verifier_key())
+    log(f"golden elastic proofs ({config}): the golden instance's bytes and the "
+        "dummy stream's (τ = 1 key) equal gemini_tpu's, proof verifies")
+
+
 def phase_golden():
     from gemini_tpu_torch.kzg.commit import CommitterKey, VerifierKey
     from gemini_tpu_torch.relation import random_r1cs
@@ -866,6 +929,7 @@ def phase_golden():
         proof.verify(r1, VerifierKey.from_committer_key(ck))
         log(f"golden instance ({config}): proof bytes equal gemini_tpu's, "
             "proof verifies")
+        elastic_golden(config, r1, ck, golden["proof_hex"])
         psnark_golden(config)
 
     prove("projective")
@@ -1016,6 +1080,107 @@ def phase_psnark(results, card):
         "max_memory_allocated_bytes": peak, "card": card}))
 
 
+ELASTIC_LOGN = 24  # examples/snark.py -i 24, BASELINE config 4
+ELASTIC_CHECK_LOGN = 20  # elastic against time, four streaming rounds
+
+
+def phase_elastic(results, card):
+    """5d: the elastic SNARK (examples/snark.py -i 24), projective.
+    First the 2^24 prove with counts, spans, peak device memory and the
+    host RSS it adds (read after a heap trim, so that what earlier
+    phases freed is not counted); then at 2^20 with threshold 16 (four
+    streaming rounds) against the time prover's bytes for the dense twin
+    (the dense relation and the τ = 1 key of the same generators); then
+    the 2^24 proof verified against the dense relation, a tampered
+    zc_alpha rejected.  Every check raises on failure."""
+    import torch
+
+    from gemini_tpu_torch import SPACE_TIME_THRESHOLD
+    from gemini_tpu_torch.curve import g1_kernels as gk
+    from gemini_tpu_torch.kzg.commit import CommitterKey
+    from gemini_tpu_torch.params import R
+    from gemini_tpu_torch.relation import DummyR1csStream
+    from gemini_tpu_torch.serialize import snark_proof_bytes
+    from gemini_tpu_torch.snark import Proof, SnarkVerificationError
+    from gemini_tpu_torch.streaming import FakeCommitterKeyStream
+    from gemini_tpu_torch.utils.trace import MemoryWatcher, SpanTotals
+
+    e = random.Random(0).randrange(1, R)
+    block = 1 << 20
+    fake = FakeCommitterKeyStream(max_eval_points=3, seed=0, max_msm_buffer=block,
+                                  device="cuda")
+    out = {"snark_elastic_logn": ELASTIC_LOGN, "config": "projective",
+           "block_size": block, "threshold": SPACE_TIME_THRESHOLD}
+
+    stream = DummyR1csStream(1 << ELASTIC_LOGN, e, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    out["host_rss_before_trim_bytes"] = MemoryWatcher._rss()
+    trim_host_heap()
+    out["host_rss_before_prove_bytes"] = MemoryWatcher._rss()
+    with SpanTotals() as spans, MemoryWatcher(interval=0.5, threshold_kib=1 << 22) as mem:
+        t0 = time.time()
+        proof = Proof.new_elastic(stream, fake, block_size=block)
+        torch.cuda.synchronize()
+        out["prove_s"] = time.time() - t0
+    launches, lanes = dict(gk.LAUNCHES), dict(gk.LANES)
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_host_rss_bytes"] = mem.peak
+    out["host_rss_added_by_prove_bytes"] = mem.peak - out["host_rss_before_prove_bytes"]
+    for name in ("padd", "padd01", "mont_mul"):
+        if launches[name] == 0:
+            raise AssertionError(f"the 2^{ELASTIC_LOGN} elastic prove launched no "
+                                 f"{name} kernel")
+        results[name]["elastic_launches"] = launches[name]
+        results[name]["elastic_lanes"] = lanes[name]
+    out["proof_bytes"] = len(snark_proof_bytes(proof))
+
+    n = 1 << ELASTIC_CHECK_LOGN
+    check = f"check_2^{ELASTIC_CHECK_LOGN}"
+    small = DummyR1csStream(n, e, device="cuda")
+    t0 = time.time()
+    elastic = snark_proof_bytes(Proof.new_elastic(small, fake, block_size=block,
+                                                  threshold=ELASTIC_CHECK_LOGN - 4))
+    torch.cuda.synchronize()
+    out[f"{check}_elastic_prove_s"] = time.time() - t0
+    ck = CommitterKey.new(max_degree=n, max_eval_points=3, seed=0, tau=1,
+                          device="cuda")
+    dense_r1cs = small.to_dense()
+    t0 = time.time()
+    dense = snark_proof_bytes(Proof.new_time(dense_r1cs, ck))
+    torch.cuda.synchronize()
+    out[f"{check}_time_prove_s"] = time.time() - t0
+    if elastic != dense:
+        raise AssertionError(f"elastic proof at 2^{ELASTIC_CHECK_LOGN} differs from "
+                             "the time prover's on the dense twin")
+    out[f"{check}_bytes_equal"] = True
+    del ck, dense_r1cs
+
+    t0 = time.time()
+    dense_r1cs = stream.to_dense()
+    torch.cuda.synchronize()
+    out["verify_relation_build_s"] = time.time() - t0
+    vk = fake.verifier_key()
+    t0 = time.time()
+    proof.verify(dense_r1cs, vk)
+    torch.cuda.synchronize()
+    out["verify_s"] = time.time() - t0
+    out["verified_logn"] = ELASTIC_LOGN
+    bad = copy.deepcopy(proof)
+    bad.zc_alpha = (bad.zc_alpha + 1) % R
+    try:
+        bad.verify(dense_r1cs, vk)
+    except SnarkVerificationError:
+        pass
+    else:
+        raise AssertionError("elastic proof with a tampered zc_alpha accepted")
+    out["tampered_rejected"] = ["zc_alpha"]
+    out.update(spans_ms=spans.ms, span_counts=spans.count, launches=launches,
+               lanes=lanes, card=card)
+    log(json.dumps(out))
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: device profile of the main path
 # ---------------------------------------------------------------------------
@@ -1096,14 +1261,17 @@ def device_profile(fn):
 
 def phase_profile(results, msm_in, r1cs, ck):
     """6: torch.profiler over one projective MSM at 2^20, one Jacobian
-    MSM at 2^20 (GEMINI_TPU_PROJ=0) and one projective 2^18 prove, after
-    the timed runs.  Without device events in the trace, says so and
+    MSM at 2^20 (GEMINI_TPU_PROJ=0), one projective 2^18 prove and two
+    streamed passes of the elastic prove, after the timed runs.  Without device events in the trace, says so and
     gives sum(lanes x per-lane time at 2^20) instead."""
     import torch
 
     from gemini_tpu_torch.curve import g1_kernels as gk
     from gemini_tpu_torch.ops.msm import msm
+    from gemini_tpu_torch.params import R
+    from gemini_tpu_torch.relation import DummyR1csStream
     from gemini_tpu_torch.snark import Proof
+    from gemini_tpu_torch.streaming import SpaceProver
 
     def run_msm():
         msm(*msm_in)
@@ -1117,9 +1285,30 @@ def phase_profile(results, msm_in, r1cs, ck):
         Proof.new_time(r1cs, ck)
         torch.cuda.synchronize()
 
+    # Two streamed passes of the elastic prove (5d): one space-prover
+    # round message over two 2^20 blocks (after one fold), and one 2^20
+    # block of the dummy stream's abc vector (24 challenges).
+    e = random.Random(0).randrange(1, R)
+    stream = DummyR1csStream(1 << 21, e, device="cuda")
+    space = SpaceProver(stream.z_a, stream.z_b, e, block_size=1 << 20)
+    space.fold(e)
+    chals = [random.Random(1).randrange(R) for _ in range(ELASTIC_LOGN)]
+    abc = DummyR1csStream(1 << ELASTIC_LOGN, e, device="cuda").abc_tensored(
+        chals, e, e, 1 << 20)
+
+    def run_space_round():
+        space._stream_round_message()
+        torch.cuda.synchronize()
+
+    def run_abc_block():
+        abc.device_slice(0, 1 << 20)
+        torch.cuda.synchronize()
+
     out = {}
     for label, fn in (("msm_2^20", run_msm), ("msm_2^20_jacobian", run_msm_jacobian),
-                      ("prove_2^18", run_prove)):
+                      ("prove_2^18", run_prove),
+                      ("elastic_space_round_2x2^20", run_space_round),
+                      ("elastic_abc_block_2^20", run_abc_block)):
         gk.reset_launches()
         t0 = time.time()
         prof = device_profile(fn)
@@ -1244,8 +1433,8 @@ def kernel_rows(results, rates, usage):
             rows[-1]["bound_ms_23_products"] = (
                 r["lanes"] * ADD_WORD_PRODUCTS_23MM * 2 / IMAD_PER_S * 1e3)
         for key, v in r.items():
-            if key.startswith(("ms_", "lanes_per", "psnark_", "float32", "device_ms",
-                               "library_device", "library_ms_", "bound_ms_",
+            if key.startswith(("ms_", "lanes_per", "psnark_", "elastic_", "float32",
+                               "device_ms", "library_device", "library_ms_", "bound_ms_",
                                "bound_rate", "bound_share_", "library_bound_share_")):
                 rows[-1][key] = v
     return rows
@@ -1259,6 +1448,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import gemini_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from gemini_tpu_torch.utils.trace import MemoryWatcher
 
     t_start = time.time()
     usage = build_all()
@@ -1267,9 +1457,10 @@ def main() -> int:
     results = {}
 
     def phase(label, fn, *args):
-        t0 = time.time()
+        t0, rss0 = time.time(), MemoryWatcher._rss()
         out = fn(*args)
-        log(f"phase {label}: {time.time() - t0:.1f} s")
+        log(f"phase {label}: {time.time() - t0:.1f} s, host RSS "
+            f"{rss0 / 2**20:.1f} -> {MemoryWatcher._rss() / 2**20:.1f} MiB")
         return out
 
     phase("2 kernels", phase_kernels, results)
@@ -1281,6 +1472,7 @@ def main() -> int:
     with jacobian_config():
         r1cs_j, ck_j = phase("5b Jacobian 2^18", phase_full, results, True)
     phase("5c pSNARK 2^18", phase_psnark, results, card)
+    phase("5d elastic SNARK 2^24", phase_elastic, results, card)
     phase("6 profile", phase_profile, results, msm_in, r1cs, ck)
     phase("6b needs_dbl count", phase_count_dbl, msm_in, r1cs_j, ck_j)
     log(f"total: {time.time() - t_start:.1f} s")

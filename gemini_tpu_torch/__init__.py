@@ -18,11 +18,16 @@ Layers (bottom-up):
   kzg/            KZG polynomial commitment
   subprotocols/   sumcheck, tensorcheck, plookup, entry product
   relation/       R1CS frontend, joint sparsity (pSNARK index)
-  snark/          non-preprocessing SNARK (time prover + verifier)
+  snark/          non-preprocessing SNARK (time and elastic provers,
+                  verifier)
   psnark/         preprocessing SNARK (index, time prover, verifier)
+  streaming/      host-RAM vectors, space/elastic sumcheck, streaming
+                  KZG and tensorcheck (the elastic SNARK prover)
   interop.py      numpy arrays of gemini_tpu objects -> port objects
 """
 
 __version__ = "0.1.0"
 
 from . import params  # noqa: F401
+
+SPACE_TIME_THRESHOLD = 22  # lib.rs:76 analogue: host->HBM promotion bound

@@ -1,5 +1,5 @@
-"""SNARK prover and verifier (port of gemini_tpu/snark/proof.py;
-snark/time_prover.rs, snark/verifier.rs analogues).
+"""SNARK provers and verifier (port of gemini_tpu/snark/proof.py;
+snark/{time,elastic}_prover.rs, snark/verifier.rs analogues).
 
 The time prover's hot path is three sparse matvecs, one witness-MSM,
 two sumchecks, and the tensorcheck (log-N MSMs + one quotient MSM) —
@@ -19,7 +19,8 @@ from ..ops import poly
 from ..params import R
 from ..relation import R1cs
 from ..serialize import ScalarMsg, G1Msg
-from ..subprotocols.sumcheck import Sumcheck, Subclaim, TimeProver
+from ..subprotocols.sumcheck import (ElasticProver, Sumcheck, Subclaim,
+                                     TimeProver)
 from ..subprotocols.tensorcheck import TensorcheckProof
 from ..transcript import GeminiTranscript, PROTOCOL_NAME
 
@@ -122,6 +123,76 @@ class Proof:
             second_sumcheck_msgs=(
                 second_proof.messages, second_proof.final_foldings
             ),
+            tensorcheck_proof=tensorcheck_proof,
+        )
+
+    @staticmethod
+    def new_elastic(r1cs, ck_stream, block_size: int = 1 << 20,
+                    threshold: int | None = None) -> "Proof":
+        """Space-efficient prover (snark/elastic_prover.rs:174): the
+        proof of `new_time`, with device memory bounded by the blocks.
+        The witness commitment streams host-RAM blocks through chunked
+        MSMs, zc(α) is a streaming evaluation, both sumchecks run the
+        elastic prover (host-resident coefficients, per-round block
+        contraction, dense switch at `threshold` rounds, default
+        SPACE_TIME_THRESHOLD), and the tensorcheck streams through the
+        fold-tree commit and open (streaming/tensorcheck.py).
+
+        `r1cs` is a dense `R1cs` or a relation stream (`DummyR1csStream`,
+        `HostR1csStream`); `ck_stream` a `CommitterKeyStream` or
+        `FakeCommitterKeyStream` on the relation's device."""
+        from .. import SPACE_TIME_THRESHOLD
+        from ..relation.stream import as_stream
+        from ..streaming import tensorcheck as tc_stream
+        from ..utils.trace import start_timer, end_timer
+
+        if threshold is None:
+            threshold = SPACE_TIME_THRESHOLD
+        t = start_timer("snark::matvecs")
+        rs = as_stream(r1cs)
+        end_timer(t)
+
+        transcript = GeminiTranscript(PROTOCOL_NAME)
+        t = start_timer("snark::commit w")
+        witness_commitment = ck_stream.commit(rs.w)
+        end_timer(t)
+        transcript.append_serializable(b"witness", G1Msg(witness_commitment))
+        alpha = transcript.get_challenge(b"alpha")
+
+        t = start_timer("snark::zc(alpha)")
+        zc_alpha = ck_stream.evaluate(rs.z_c, alpha)
+        end_timer(t)
+        transcript.append_serializable(b"zc(alpha)", ScalarMsg(zc_alpha))
+
+        t = start_timer("snark::sumcheck 1")
+        first_proof = Sumcheck.prove(
+            transcript,
+            ElasticProver(rs.z_a, rs.z_b, alpha, block_size, threshold))
+        end_timer(t)
+
+        eta = transcript.get_challenge(b"eta")
+        t = start_timer("snark::abc_tensored")
+        abc_host = rs.abc_tensored(first_proof.challenges, alpha, eta,
+                                   block_size)
+        end_timer(t)
+
+        t = start_timer("snark::sumcheck 2")
+        second_proof = Sumcheck.prove(
+            transcript, ElasticProver(abc_host, rs.z, 1, block_size, threshold))
+        end_timer(t)
+
+        t = start_timer("snark::tensorcheck")
+        tensorcheck_proof = tc_stream.new_space(
+            transcript, ck_stream, [rs.w],
+            [((abc_host, rs.z), second_proof.challenges)])
+        end_timer(t)
+        return Proof(
+            witness_commitment=witness_commitment,
+            zc_alpha=zc_alpha,
+            first_sumcheck_msgs=(
+                first_proof.messages, first_proof.final_foldings),
+            second_sumcheck_msgs=(
+                second_proof.messages, second_proof.final_foldings),
             tensorcheck_proof=tensorcheck_proof,
         )
 

@@ -115,6 +115,25 @@ class TimeProver:
         return (FR.decode(self.f[:, :1])[0], FR.decode(self.g[:, :1])[0])
 
 
+def ElasticProver(f, g, twist: int, block_size: int = 1 << 20,
+                  threshold: int | None = None):
+    """Resource-adaptive prover entry (elastic_prover.rs:10-57), the one
+    `snark.Proof.new_elastic` calls: HostVector inputs run the streaming
+    space prover with the dense switch under SPACE_TIME_THRESHOLD
+    (streaming/sumcheck.py); device tensors run the dense TimeProver
+    directly."""
+    from ..streaming.host import HostVector
+
+    if isinstance(f, HostVector) or isinstance(g, HostVector):
+        from .. import SPACE_TIME_THRESHOLD
+        from ..streaming.sumcheck import ElasticProver as _StreamElastic
+
+        if threshold is None:
+            threshold = SPACE_TIME_THRESHOLD
+        return _StreamElastic(f, g, twist, block_size, threshold)
+    return TimeProver(f, g, twist)
+
+
 def _append_round_msg(transcript: GeminiTranscript, msg: Tuple[int, int]):
     # RoundMsg derives CanonicalSerialize: a || b, 64 bytes
     # (prover.rs:10; appended at proof.rs:44).
