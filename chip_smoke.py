@@ -43,6 +43,8 @@ native host library from the sources in the checkout, then, in order:
      elastic prover (block size 8, threshold 2) gives the golden SNARK
      bytes, and the dummy stream with the constant-base τ = 1 key gives
      gemini_tpu's elastic bytes (testdata/elastic_golden.json), in both
+     configurations; the elastic pSNARK prover (block size 8, threshold
+     2) gives the golden pSNARK bytes and verifies, in both
      configurations;
   5. proves and verifies the examples/snark.py -i 18 --time-prover
      instance (SRS built on the card), rejects a tampered proof, and
@@ -60,15 +62,31 @@ native host library from the sources in the checkout, then, in order:
   5d. the elastic SNARK (examples/snark.py -i 24, BASELINE config 4):
      DummyR1csStream(2^24, e = Random(0).randrange(1, R)) with
      FakeCommitterKeyStream(3, seed=0, max_msm_buffer=2^20), block size
-     2^20, threshold 22.  First the 2^24 prove; then at 2^20 with
-     threshold 16 (four streaming rounds), whose bytes must equal the
-     time prover's on the dense twin (CommitterKey.new(2^20, 3, seed=0,
+     2^20, threshold 22.  First the 2^24 prove; then at 2^18 with
+     threshold 14 (four streaming rounds), whose bytes must equal the
+     time prover's on the dense twin (CommitterKey.new(2^18, 3, seed=0,
      tau=1)); then the 2^24 proof verified against the dense relation,
      a tampered zc_alpha rejected; prints one {"snark_elastic_logn": 24,
      ...} JSON line (prove and verify seconds, proof bytes, peak device
      memory, host RSS before the prove (after a heap trim), its peak and
      the difference, spans, launches and lanes; padd and padd01 must
      launch, counts reset before the prove) with the card line;
+  5e. the elastic pSNARK (examples/psnark.py -i 20 --giant):
+     DummyR1csStream(2^20, e) with FakeCommitterKeyStream(3, seed=0,
+     max_msm_buffer=2^20), block size 2^20, threshold 22: index_stream
+     and the prove timed on the host clock ending in a synchronize, the
+     bytes -> parse -> bytes round trip, verified against the dense
+     relation, tampered zc_alpha and set_z_ep rejected; then the dense
+     twin at 2^16 (block 2^12, threshold 12: the three sumchecks run
+     space-prover rounds), whose elastic bytes must equal the time
+     prover's on to_dense() with CommitterKey.new(2n + nnz + 2, 3,
+     seed=0, tau=1), and whose index_stream must equal index there;
+     prints one {"psnark_elastic_logn": 20, ...} JSON line (index,
+     prove and verify seconds, proof bytes, psnark::* and
+     tensorcheck::* spans, the device peak and the span it falls in,
+     host RSS before the prove and what it added, launches and lanes
+     per kernel; padd, padd01 and mont_mul must launch, counts reset
+     before the prove) with the card line;
   6. profiles one projective MSM at 2^20, one Jacobian MSM at 2^20, one
      projective 2^18 prove and two streamed passes of the elastic prove
      (a space-prover round over two 2^20 blocks, one 2^20 block of the
@@ -89,7 +107,8 @@ projective prove (5), add from the Jacobian prove (5b), dbl from the
 group API (2c), vpu_chain from vpubench, copy_add from mmbench (2b).
 The pSNARK prove's (5c) padd, padd01 and mont_mul launches are the
 table's `psnark_launches`, the 2^24 elastic prove's (5d) its
-`elastic_launches`.
+`elastic_launches`, the 2^20 elastic pSNARK prove's (5e) its
+`psnark_elastic_launches` (every kernel).
 
 Any failure raises and the script exits non-zero; without a CUDA device
 it exits non-zero before printing a result.  Tolerance everywhere:
@@ -847,12 +866,16 @@ def golden_file(name: str) -> dict:
 def psnark_golden(config):
     """The pSNARK golden instance on the card: index commitments and
     proof bytes equal gemini_tpu's, the proof verifies, and gemini_tpu's
-    proof read by the port's deserializer verifies."""
+    proof read by the port's deserializer verifies; the elastic prover
+    (CommitterKeyStream(ck, max_msm_buffer=16), block 8, threshold 2)
+    gives the same bytes, which gemini_tpu's tests pin its own elastic
+    proof to, and its proof verifies."""
     from gemini_tpu_torch.kzg.commit import CommitterKey, VerifierKey
     from gemini_tpu_torch.psnark import Proof, index
     from gemini_tpu_torch.relation import random_r1cs
     from gemini_tpu_torch.serialize import (g1_compressed, psnark_proof_bytes,
                                             psnark_proof_from_bytes)
+    from gemini_tpu_torch.streaming import CommitterKeyStream
 
     g = golden_file("psnark_golden.json")
     r1 = random_r1cs(random.Random(g["r1cs_seed"]), g["n"], row_nnz=g["row_nnz"],
@@ -871,9 +894,16 @@ def psnark_golden(config):
     proof.verify(r1, vk, idx, g["num_non_zero"])
     psnark_proof_from_bytes(bytes.fromhex(g["proof_hex"])).verify(
         r1, vk, idx, g["num_non_zero"])
+    proof = Proof.new_elastic(CommitterKeyStream(ck, max_msm_buffer=16), r1, idx,
+                              block_size=8, threshold=2)
+    if psnark_proof_bytes(proof).hex() != g["proof_hex"]:
+        raise AssertionError(f"pSNARK golden elastic proof bytes ({config}) differ "
+                             "from gemini_tpu's")
+    proof.verify(r1, vk, idx, g["num_non_zero"])
     log(f"pSNARK golden instance ({config}): index commitments and proof bytes "
         "equal gemini_tpu's, proof verifies; gemini_tpu's proof, parsed by the "
-        "port, verifies")
+        "port, verifies; the elastic proof (block 8, threshold 2) has the same "
+        "bytes and verifies")
 
 
 def elastic_golden(config, r1, ck, proof_hex):
@@ -1081,14 +1111,14 @@ def phase_psnark(results, card):
 
 
 ELASTIC_LOGN = 24  # examples/snark.py -i 24, BASELINE config 4
-ELASTIC_CHECK_LOGN = 20  # elastic against time, four streaming rounds
+ELASTIC_CHECK_LOGN = 18  # elastic against time, four streaming rounds
 
 
 def phase_elastic(results, card):
     """5d: the elastic SNARK (examples/snark.py -i 24), projective.
     First the 2^24 prove with counts, spans, peak device memory and the
     host RSS it adds (read after a heap trim, so that what earlier
-    phases freed is not counted); then at 2^20 with threshold 16 (four
+    phases freed is not counted); then at 2^18 with threshold 14 (four
     streaming rounds) against the time prover's bytes for the dense twin
     (the dense relation and the τ = 1 key of the same generators); then
     the 2^24 proof verified against the dense relation, a tampered
@@ -1178,6 +1208,161 @@ def phase_elastic(results, card):
     out["tampered_rejected"] = ["zc_alpha"]
     out.update(spans_ms=spans.ms, span_counts=spans.count, launches=launches,
                lanes=lanes, card=card)
+    log(json.dumps(out))
+
+
+PSNARK_ELASTIC_LOGN = 20  # examples/psnark.py -i 20 --giant
+PSNARK_TWIN_LOGN = 16  # the space prover's rounds against the time prover
+PSNARK_TWIN_BLOCK_LOG = 12  # also the threshold: four to six space rounds
+
+
+def span_totals_with_peaks():
+    """A SpanTotals that also reads the device's peak allocation at every
+    span end and resets it: `peak[label]` is the largest allocation
+    reached while `label` was the next span to end."""
+    import torch
+
+    from gemini_tpu_torch.utils.trace import SpanTotals
+
+    class WithPeaks(SpanTotals):
+        def __init__(self):
+            super().__init__()
+            self.peak = {}
+
+        def add(self, label: str, dt: float) -> None:
+            super().add(label, dt)
+            self.peak[label] = max(self.peak.get(label, 0),
+                                   torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+    return WithPeaks()
+
+
+def phase_psnark_elastic(results, card):
+    """5e: the elastic pSNARK (examples/psnark.py -i 20 --giant),
+    projective: DummyR1csStream(2^20, e = Random(0).randrange(1, R)),
+    FakeCommitterKeyStream(3, seed=0, max_msm_buffer=2^20), block 2^20,
+    the default threshold.  index_stream and the prove timed; the bytes
+    round-trip; verified against the dense relation; tampered zc_alpha
+    and set_z_ep rejected.  Then the dense twin at 2^16 (block 2^12,
+    threshold 12, so the three sumchecks run space-prover rounds): the
+    elastic bytes equal the time prover's on to_dense() with the τ = 1
+    key of the same generators, and index_stream equals index there.
+    Every check raises on failure."""
+    import torch
+
+    from gemini_tpu_torch import SPACE_TIME_THRESHOLD
+    from gemini_tpu_torch.benches import probes
+    from gemini_tpu_torch.curve import g1_kernels as gk
+    from gemini_tpu_torch.kzg.commit import CommitterKey
+    from gemini_tpu_torch.params import R
+    from gemini_tpu_torch.psnark import (Proof, PsnarkVerificationError, index,
+                                         index_stream)
+    from gemini_tpu_torch.relation import DummyR1csStream
+    from gemini_tpu_torch.relation.r1cs import joint_matrices
+    from gemini_tpu_torch.serialize import psnark_proof_bytes, psnark_proof_from_bytes
+    from gemini_tpu_torch.streaming import FakeCommitterKeyStream
+    from gemini_tpu_torch.utils.trace import MemoryWatcher
+
+    e = random.Random(0).randrange(1, R)
+    n = 1 << PSNARK_ELASTIC_LOGN
+    block = 1 << 20
+    fake = FakeCommitterKeyStream(max_eval_points=3, seed=0, max_msm_buffer=block,
+                                  device="cuda")
+    stream = DummyR1csStream(n, e, device="cuda")
+    out = {"psnark_elastic_logn": PSNARK_ELASTIC_LOGN, "config": "projective",
+           "block_size": block, "threshold": SPACE_TIME_THRESHOLD}
+    t0 = time.time()
+    idx = index_stream(fake, stream)
+    torch.cuda.synchronize()
+    out["index_s"] = time.time() - t0
+
+    trim_host_heap()
+    out["host_rss_before_prove_bytes"] = MemoryWatcher._rss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    probes.reset_launches()
+    with span_totals_with_peaks() as spans, \
+            MemoryWatcher(interval=0.5, threshold_kib=1 << 22) as mem:
+        t0 = time.time()
+        proof = Proof.new_elastic(fake, stream, idx, block_size=block)
+        torch.cuda.synchronize()
+        out["prove_s"] = time.time() - t0
+    launches = {**gk.LAUNCHES, **probes.LAUNCHES}
+    lanes = dict(gk.LANES)
+    spans.peak["after the last span"] = torch.cuda.max_memory_allocated()
+    stage = max(spans.peak, key=spans.peak.get)
+    out.update(max_memory_allocated_bytes=spans.peak[stage],
+               max_memory_allocated_stage=stage,
+               max_memory_allocated_by_span_bytes=spans.peak,
+               peak_host_rss_bytes=mem.peak,
+               host_rss_added_by_prove_bytes=mem.peak
+               - out["host_rss_before_prove_bytes"])
+    for name in ("padd", "padd01", "mont_mul"):
+        if launches[name] == 0:
+            raise AssertionError(f"the 2^{PSNARK_ELASTIC_LOGN} elastic pSNARK prove "
+                                 f"launched no {name} kernel")
+    for name in KERNELS:
+        results[name]["psnark_elastic_launches"] = launches[name]
+        results[name]["psnark_elastic_lanes"] = lanes.get(name, 0)
+
+    raw = psnark_proof_bytes(proof)
+    out["proof_bytes"] = len(raw)
+    if psnark_proof_bytes(psnark_proof_from_bytes(raw)) != raw:
+        raise AssertionError("elastic pSNARK proof bytes do not survive a parse")
+    t0 = time.time()
+    dense_r1cs = stream.to_dense()
+    torch.cuda.synchronize()
+    out["verify_relation_build_s"] = time.time() - t0
+    vk = fake.verifier_key()
+    t0 = time.time()
+    proof.verify(dense_r1cs, vk, idx, n)
+    torch.cuda.synchronize()
+    out["verify_s"] = time.time() - t0
+    for field in ("zc_alpha", "set_z_ep"):
+        bad = copy.deepcopy(proof)
+        setattr(bad, field, (getattr(bad, field) + 1) % R)
+        try:
+            bad.verify(dense_r1cs, vk, idx, n)
+        except PsnarkVerificationError:
+            pass
+        else:
+            raise AssertionError(f"elastic pSNARK proof with a tampered {field} "
+                                 "accepted")
+    out["tampered_rejected"] = ["zc_alpha", "set_z_ep"]
+    del dense_r1cs
+
+    m = 1 << PSNARK_TWIN_LOGN
+    twin = f"twin_2^{PSNARK_TWIN_LOGN}"
+    small = DummyR1csStream(m, e, device="cuda")
+    small_idx = index_stream(fake, small)
+    t0 = time.time()
+    elastic = psnark_proof_bytes(Proof.new_elastic(
+        fake, small, small_idx, block_size=1 << PSNARK_TWIN_BLOCK_LOG,
+        threshold=PSNARK_TWIN_BLOCK_LOG))
+    torch.cuda.synchronize()
+    out[f"{twin}_elastic_s"] = time.time() - t0
+    dense_r1cs = small.to_dense()
+    nnz = joint_matrices(dense_r1cs).num_non_zero
+    ck = CommitterKey.new(max_degree=2 * m + nnz + 2, max_eval_points=3, seed=0,
+                          tau=1, device="cuda")
+    if index(ck, dense_r1cs) != small_idx:
+        raise AssertionError(f"index_stream at 2^{PSNARK_TWIN_LOGN} differs from index "
+                             "on the dense twin")
+    t0 = time.time()
+    dense = psnark_proof_bytes(Proof.new_time(ck, dense_r1cs, small_idx))
+    torch.cuda.synchronize()
+    out[f"{twin}_time_s"] = time.time() - t0
+    if elastic != dense:
+        raise AssertionError(f"elastic pSNARK proof at 2^{PSNARK_TWIN_LOGN} differs "
+                             "from the time prover's on the dense twin")
+    out[f"{twin}_bytes_equal"] = True
+    out[f"{twin}_block_size_and_threshold"] = [1 << PSNARK_TWIN_BLOCK_LOG,
+                                               PSNARK_TWIN_BLOCK_LOG]
+    out.update(spans_ms={k: v for k, v in spans.ms.items()
+                         if k.startswith(("psnark::", "tensorcheck::"))},
+               span_counts=spans.count, launches=launches, lanes=lanes, card=card)
     log(json.dumps(out))
 
 
@@ -1473,6 +1658,7 @@ def main() -> int:
         r1cs_j, ck_j = phase("5b Jacobian 2^18", phase_full, results, True)
     phase("5c pSNARK 2^18", phase_psnark, results, card)
     phase("5d elastic SNARK 2^24", phase_elastic, results, card)
+    phase("5e elastic pSNARK 2^20", phase_psnark_elastic, results, card)
     phase("6 profile", phase_profile, results, msm_in, r1cs, ck)
     phase("6b needs_dbl count", phase_count_dbl, msm_in, r1cs_j, ck_j)
     log(f"total: {time.time() - t_start:.1f} s")

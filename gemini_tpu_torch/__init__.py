@@ -6,8 +6,8 @@ bytes for the same inputs.  Device code is PyTorch; the G1 group-law
 and Fq Montgomery kernels are hand-written CUDA C++ for Hopper
 (csrc/, curve/g1_kernels.py).  Host-only modules (params, refimpl,
 native, hostcurve, transcript, serialize, utils/trace) are the port's
-own copies.  Entry points run on `cuda` unless the caller passes
-`device="cpu"`.
+own copies, and so is herring/.  Entry points run on `cuda` unless the
+caller passes `device="cpu"`.
 
 Layers (bottom-up):
 
@@ -20,9 +20,13 @@ Layers (bottom-up):
   relation/       R1CS frontend, joint sparsity (pSNARK index)
   snark/          non-preprocessing SNARK (time and elastic provers,
                   verifier)
-  psnark/         preprocessing SNARK (index, time prover, verifier)
+  psnark/         preprocessing SNARK (index, index_stream, time and
+                  elastic provers, verifier)
   streaming/      host-RAM vectors, space/elastic sumcheck, streaming
-                  KZG and tensorcheck (the elastic SNARK prover)
+                  KZG and tensorcheck, the block ops of the elastic
+                  provers
+  herring/        module sumchecks and the pairing-based inner-product
+                  argument (host-only)
   interop.py      numpy arrays of gemini_tpu objects -> port objects
 """
 

@@ -77,6 +77,12 @@ class FieldSpec:
         """ints -> (L, N) uint32 limb array (Montgomery form by default)."""
         if isinstance(values, (int, np.integer)):
             values = [int(values)]
+        values = list(values)
+        if len(values) > 1 and values.count(values[0]) == len(values):
+            # one value repeated (the dummy relations): encode it once
+            col = self.encode(values[:1], mont)
+            return np.ascontiguousarray(
+                np.broadcast_to(col, (self.n_limbs, len(values))))
         m = self.modulus
         r = self.mont_r if mont else 1
         nbytes = self.n_limbs * LIMB_BITS // 8

@@ -8,6 +8,6 @@ products, which reduce to entry products, which reduce to sumchecks,
 all closed by one batched tensorcheck.
 """
 
-from .proof import Proof, PsnarkVerificationError, index
+from .proof import Proof, PsnarkVerificationError, index, index_stream
 
-__all__ = ["Proof", "PsnarkVerificationError", "index"]
+__all__ = ["Proof", "PsnarkVerificationError", "index", "index_stream"]

@@ -52,6 +52,15 @@ def index(ck: CommitterKey, r1cs: R1cs) -> List[G1Host]:
     return ck.batch_commit([jm.row, jm.col, jm.val_a, jm.val_b, jm.val_c])
 
 
+def index_stream(ck_stream, r1cs_stream) -> List[G1Host]:
+    """Streaming indexer: the 5 joint-sparsity commitments of `index`,
+    from a relation stream through the streaming committer's chunked
+    MSMs (the same group elements as `index` on the dense relation)."""
+    jm = r1cs_stream.joint()
+    return [ck_stream.commit(v)
+            for v in (jm.row, jm.col, jm.val_a, jm.val_b, jm.val_c)]
+
+
 def _append_index(transcript: GeminiTranscript, ck_g2: Sequence,
                   idx: Sequence[G1Host]) -> None:
     transcript.append_serializable(b"ck", [G2Msg(p) for p in ck_g2])
@@ -291,6 +300,21 @@ class Proof:
             third_sumcheck_msgs=(third_proof.messages, third_proof.final_foldings),
             tensorcheck_proof=tensorcheck_proof,
         )
+
+    @staticmethod
+    def new_elastic(ck_stream, r1cs, idx: Sequence[G1Host],
+                    block_size: int = 1 << 20,
+                    threshold: int | None = None) -> "Proof":
+        """Space-efficient prover (psnark/elastic_prover.rs:60-635): the
+        proof of `new_time` from host-RAM block streams, with device
+        memory bounded by the blocks and the dense switch at `threshold`
+        rounds (default SPACE_TIME_THRESHOLD).  `r1cs` is a dense `R1cs`
+        or a relation stream (`DummyR1csStream`, `HostR1csStream`): the
+        giant-instance path of examples/psnark.rs:54-68.  See
+        psnark/elastic.py."""
+        from .elastic import new_elastic
+
+        return new_elastic(ck_stream, r1cs, idx, block_size, threshold)
 
     # -- verifier ---------------------------------------------------------
 

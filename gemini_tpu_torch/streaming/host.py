@@ -115,6 +115,12 @@ class HostVector:
         """slice() moved to the device with the packed wire format."""
         return to_device_limbs(self.slice(start, end), self.device)
 
+    def gather(self, idx: np.ndarray) -> "HostVector":
+        """items[idx] by numpy fancy indexing on the host limbs (a
+        DeviceVector reads its limbs back first)."""
+        return HostVector(self.limbs[:, np.asarray(idx, dtype=np.int64)],
+                          self.spec, self.device)
+
     def blocks(self, block_size: int) -> Iterator[tuple[int, torch.Tensor]]:
         """Yield (offset, device block) pairs, in coefficient order.
         Restartable: call again for a fresh pass."""
@@ -139,6 +145,7 @@ class VirtualHostVector(HostVector):
         self.spec = spec
         self._device_fn = device_fn
         self.device = resolve(device)
+        self._const_value = None  # the value, for a constant vector
 
     @classmethod
     def constant(cls, value: int, n: int, spec: FieldSpec = FR,
@@ -152,6 +159,7 @@ class VirtualHostVector(HostVector):
         out = cls(n, fn, spec, device=device)
         dev_col = to_tensor(col, out.device)
         out._device_fn = lambda start, end: dev_col.expand(spec.n_limbs, end - start)
+        out._const_value = value % spec.modulus
         return out
 
     def __len__(self) -> int:
@@ -172,6 +180,16 @@ class VirtualHostVector(HostVector):
         if self._device_fn is not None and end > start:
             return self._device_fn(start, end)
         return super().device_slice(start, end)
+
+    def gather(self, idx: np.ndarray) -> HostVector:
+        """A gather from a constant is the constant at the gathered
+        length, O(1); other generated vectors must be materialized by
+        the caller first."""
+        if self._const_value is not None:
+            return VirtualHostVector.constant(self._const_value, len(idx),
+                                              self.spec, self.device)
+        raise NotImplementedError(
+            "gather on a virtual stream; materialize explicitly first")
 
 
 class DeviceVector(HostVector):

@@ -38,7 +38,7 @@ from ..ops.msm import msm_mont_scalars
 from ..params import R
 from ..refimpl import g1_generator, g2_generator
 from .host import DeviceVector, HostVector, device_block, from_device_limbs
-from .ops import _lincomb_device_block, hv_lincomb
+from .ops import _lincomb_device_block, hv_evaluate, hv_lincomb
 
 G1Host = Optional[Tuple[int, int]]
 
@@ -136,11 +136,8 @@ class CommitterKeyStream:
         return [self.commit(v) for v in hvs]
 
     def evaluate(self, hv: HostVector, x: int) -> int:
-        """Streaming f(x), little-endian blocks."""
-        acc = 0
-        for off, block in hv.blocks(self.max_msm_buffer):
-            acc = (acc + pow(x, off, R) * poly.evaluate_le(FR, block, x)) % R
-        return acc
+        """Streaming f(x), in blocks of the MSM buffer."""
+        return hv_evaluate(hv, x, self.max_msm_buffer)
 
     def open(self, hv: HostVector, x: int) -> Tuple[int, G1Host]:
         """(f(x), commitment to the quotient (f - f(x))/(X - x)) in one

@@ -9,7 +9,8 @@ with g the suffix-product accumulator of monic(f) and y = (1, ψ, ...)
 The suffix products are a reverse multiplicative scan (ops/scan.py,
 log depth, Fr Montgomery products as the combine); monic and the right
 rotation are one-lane concatenations; everything stays on the device
-until the accumulator commitment (one MSM).
+until the accumulator commitment (one MSM).  `new_elastic_batch` is the
+streaming flavour over host-RAM vectors (streaming/ops.py).
 """
 
 from __future__ import annotations
@@ -71,8 +72,8 @@ class ProverMsgs:
 class EntryProduct:
     msgs: ProverMsgs
     chal: int
-    provers: List[TimeProver]
-    acc_vs: List[torch.Tensor]  # unpadded accumulators (committed form)
+    provers: list  # TimeProvers, or elastic provers (new_elastic_batch)
+    acc_vs: list  # unpadded accumulators (committed form): tensors or HostVectors
 
     @staticmethod
     def new_time(transcript: GeminiTranscript, ck: CommitterKey,
@@ -100,6 +101,45 @@ class EntryProduct:
         for cp, acc_v in zip(claimed_products, acc_vs):
             acc_v_chal = poly.evaluate_le(FR, acc_v, chal)
             chal_n = pow(chal, acc_v.shape[1], R)
+            claimed_sumchecks.append((acc_v_chal * chal + cp - chal_n) % R)
+        return EntryProduct(
+            msgs=ProverMsgs(acc_v_commitments, claimed_sumchecks),
+            chal=chal,
+            provers=provers,
+            acc_vs=acc_vs,
+        )
+
+    @staticmethod
+    def new_elastic_batch(transcript: GeminiTranscript, ck_stream,
+                          vs: Sequence, claimed_products: Sequence[int],
+                          block_size: int = 1 << 20,
+                          threshold: int | None = None) -> "EntryProduct":
+        """Streaming flavour over HostVectors
+        (entryproduct/elastic_prover.rs:68-135): accumulators from
+        block-stitched suffix products, commitments through the streaming
+        committer's bounded MSMs, elastic sumcheck provers (the
+        `ElasticProver` dispatch).  The transcript of `new_time_batch`;
+        `acc_vs` are HostVectors."""
+        from ..streaming.ops import (
+            hv_accumulated_product, hv_evaluate, hv_monic, hv_right_rotation)
+        from .sumcheck import ElasticProver
+
+        if len(vs) != len(claimed_products):
+            raise ValueError(f"{len(vs)} vectors, {len(claimed_products)} products")
+        monic_vs = [hv_monic(v) for v in vs]
+        rrot_vs = [hv_right_rotation(m) for m in monic_vs]
+        acc_vs = [hv_accumulated_product(m, block_size) for m in monic_vs]
+        acc_v_commitments = [ck_stream.commit(a) for a in acc_vs]
+        for cm in acc_v_commitments:
+            transcript.append_serializable(b"acc_v", G1Msg(cm))
+        chal = transcript.get_challenge(b"ep-chal")
+
+        provers = [ElasticProver(acc_v, rrot_v, chal, block_size, threshold)
+                   for acc_v, rrot_v in zip(acc_vs, rrot_vs)]
+        claimed_sumchecks = []
+        for cp, acc_v in zip(claimed_products, acc_vs):
+            acc_v_chal = hv_evaluate(acc_v, chal, block_size)
+            chal_n = pow(chal, len(acc_v), R)
             claimed_sumchecks.append((acc_v_chal * chal + cp - chal_n) % R)
         return EntryProduct(
             msgs=ProverMsgs(acc_v_commitments, claimed_sumchecks),
