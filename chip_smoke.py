@@ -77,7 +77,7 @@ native host library from the sources in the checkout, then, in order:
      and the prove timed on the host clock ending in a synchronize, the
      bytes -> parse -> bytes round trip, verified against the dense
      relation, tampered zc_alpha and set_z_ep rejected; then the dense
-     twin at 2^16 (block 2^12, threshold 12: the three sumchecks run
+     twin at 2^15 (block 2^12, threshold 12: the three sumchecks run
      space-prover rounds), whose elastic bytes must equal the time
      prover's on to_dense() with CommitterKey.new(2n + nnz + 2, 3,
      seed=0, tau=1), and whose index_stream must equal index there;
@@ -87,6 +87,24 @@ native host library from the sources in the checkout, then, in order:
      host RSS before the prove and what it added, launches and lanes
      per kernel; padd, padd01 and mont_mul must launch, counts reset
      before the prove) with the card line;
+  5f. the GLV MSM and the multi-device paths: glv.decompose on bench.py's
+     2^20 scalars plus the edge scalars (4096 sampled lanes and the
+     edges equal the CPU's, recombine mod r and stay under the bound;
+     its device kernels per 2^20 MSM counted by torch.profiler); the
+     GLV MSM (GEMINI_TPU_GLV=1) at 2^16 against the host Pippenger and
+     at 2^20 against phase 3 in both configurations, with its padd,
+     padd01 and mont_mul launches (each must launch) and three
+     alternating GLV off/on pairs at 2^20 (host clock, printed, not
+     claimed); then a 4-shard mesh (four cards when there are four,
+     else Mesh([cuda:0] * 4), printed): msm_multichip 2^20 against
+     phase 3, msm_batch_multichip on a fold-tree batch (2^18 ... 2^9)
+     against msm_batch, ShardedTimeProver 2^18 against TimeProver, the
+     2^18 SNARK with mesh= (phase 5's bytes, verified, timed; padd,
+     padd01 and mont_mul must launch, no host MSM may run), and with
+     mesh= and GEMINI_TPU_GLV=1 in both configurations the golden
+     SNARK, the golden elastic SNARKs (CommitterKeyStream and the
+     τ = 1 fake key with mesh=) and the golden pSNARK against
+     gemini_tpu's bytes; prints one {"mesh_glv": ...} JSON line;
   6. profiles one projective MSM at 2^20, one Jacobian MSM at 2^20, one
      projective 2^18 prove and two streamed passes of the elastic prove
      (a space-prover round over two 2^20 blocks, one 2^20 block of the
@@ -108,7 +126,9 @@ group API (2c), vpu_chain from vpubench, copy_add from mmbench (2b).
 The pSNARK prove's (5c) padd, padd01 and mont_mul launches are the
 table's `psnark_launches`, the 2^24 elastic prove's (5d) its
 `elastic_launches`, the 2^20 elastic pSNARK prove's (5e) its
-`psnark_elastic_launches` (every kernel).
+`psnark_elastic_launches` (every kernel); the GLV MSM's (5f) its
+`glv_launches` and the 2^18 mesh prove's (5f) its `mesh_launches`
+(padd, padd01, mont_mul).
 
 Any failure raises and the script exits non-zero; without a CUDA device
 it exits non-zero before printing a result.  Tolerance everywhere:
@@ -774,48 +794,66 @@ def phase_group_api(results):
 
 
 @contextlib.contextmanager
-def jacobian_config():
-    """GEMINI_TPU_PROJ=0 (the MSM and SRS through the Jacobian add
-    kernel) inside the block; the variable is restored after it."""
-    old = os.environ.get("GEMINI_TPU_PROJ")
-    os.environ["GEMINI_TPU_PROJ"] = "0"
+def env_config(name: str, value: str):
+    """os.environ[name] = value inside the block; restored after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("GEMINI_TPU_PROJ")
+            os.environ.pop(name)
         else:
-            os.environ["GEMINI_TPU_PROJ"] = old
+            os.environ[name] = old
 
 
-def phase_msm():
+def jacobian_config():
+    """GEMINI_TPU_PROJ=0 (the MSM and SRS through the Jacobian add
+    kernel) inside the block."""
+    return env_config("GEMINI_TPU_PROJ", "0")
+
+
+def bench_msm_inputs(n):
+    """bench.py's MSM inputs at n lanes on the card: 512 host points
+    (Random(0xBEEF)) tiled, RandomState(7) scalars with the top limb
+    masked.  Returns (points, scalars, scalar limbs as numpy, the 512
+    host points)."""
     import numpy as np
     import torch
 
     from gemini_tpu_torch.curve import g1
     from gemini_tpu_torch.fields.fp import FR
-    from gemini_tpu_torch.hostcurve import g1_msm, g1_mul
-    from gemini_tpu_torch.ops.msm import msm
+    from gemini_tpu_torch.hostcurve import g1_mul
     from gemini_tpu_torch.params import R
     from gemini_tpu_torch.refimpl import g1_generator
 
     rnd = random.Random(0xBEEF)
     host_pts = [g1_mul(g1_generator(), rnd.randrange(1, R)) for _ in range(512)]
     ap = g1.encode_affine(host_pts, "cuda")
+    reps = -(-n // 512)
+    pts = g1.APoint(ap.x.repeat(1, reps)[:, :n], ap.y.repeat(1, reps)[:, :n],
+                    ap.inf.repeat(reps)[:n])
+    rng = np.random.RandomState(7)
+    s = np.zeros((FR.n_limbs, n), dtype=np.int64)
+    for i in range(FR.n_limbs):
+        s[i] = rng.randint(0, 1 << 16, size=n)
+    s[FR.n_limbs - 1] &= 0x0FFF
+    return pts, torch.from_numpy(s.astype(np.int32)).cuda(), s, host_pts
 
-    def inputs(n):
-        reps = -(-n // 512)
-        pts = g1.APoint(ap.x.repeat(1, reps)[:, :n], ap.y.repeat(1, reps)[:, :n],
-                        ap.inf.repeat(reps)[:n])
-        rng = np.random.RandomState(7)
-        s = np.zeros((FR.n_limbs, n), dtype=np.int64)
-        for i in range(FR.n_limbs):
-            s[i] = rng.randint(0, 1 << 16, size=n)
-        s[FR.n_limbs - 1] &= 0x0FFF
-        return pts, torch.from_numpy(s.astype(np.int32)).cuda(), s
+
+def phase_msm():
+    """3: the MSM at 2^16 against the host Pippenger and timed at 2^20,
+    in both configurations.  Returns the 2^20 inputs and each
+    configuration's 2^20 result (a host point)."""
+    import torch
+
+    from gemini_tpu_torch.curve import g1
+    from gemini_tpu_torch.fields.fp import FR
+    from gemini_tpu_torch.hostcurve import g1_msm
+    from gemini_tpu_torch.ops.msm import msm
 
     n = 1 << 16
-    pts, sc, s_np = inputs(n)
+    pts, sc, s_np, host_pts = bench_msm_inputs(n)
     ks = [sum(int(s_np[i, j]) << (16 * i) for i in range(FR.n_limbs)) for j in range(n)]
     t0 = time.time()
     want = g1_msm([host_pts[j % 512] for j in range(n)], ks)
@@ -830,7 +868,7 @@ def phase_msm():
         f"(host {host_s:.2f} s)")
 
     n = 1 << 20
-    pts, sc, _ = inputs(n)
+    pts, sc, _, _ = bench_msm_inputs(n)
 
     def timed(config):
         t0 = time.time()
@@ -843,14 +881,16 @@ def phase_msm():
             out = msm(pts, sc)
             torch.cuda.synchronize()
             best = min(best, time.time() - t0)
-        g1.decode_jacobian(out)
         log(json.dumps({"metric": "msm_g1_points_per_s_2^20", "config": config,
                         "value": n / best, "best_s": best, "first_s": warm}))
+        return g1.decode_jacobian(out)[0]
 
-    timed("projective")
+    out = {"projective": timed("projective")}
     with jacobian_config():
-        timed("jacobian")
-    return pts, sc
+        out["jacobian"] = timed("jacobian")
+    if out["projective"] != out["jacobian"]:
+        raise AssertionError("MSM 2^20: the projective and Jacobian results differ")
+    return (pts, sc), out
 
 
 # ---------------------------------------------------------------------------
@@ -1031,7 +1071,7 @@ def phase_full(results, jacobian: bool):
                     "proof_bytes": len(snark_proof_bytes(proof)),
                     "setup_launches": setup_launches, "launches": launches,
                     "lanes": lanes, "tampered_rejected": True}))
-    return r1cs, ck
+    return r1cs, ck, snark_proof_bytes(proof)
 
 
 def phase_psnark(results, card):
@@ -1212,8 +1252,8 @@ def phase_elastic(results, card):
 
 
 PSNARK_ELASTIC_LOGN = 20  # examples/psnark.py -i 20 --giant
-PSNARK_TWIN_LOGN = 16  # the space prover's rounds against the time prover
-PSNARK_TWIN_BLOCK_LOG = 12  # also the threshold: four to six space rounds
+PSNARK_TWIN_LOGN = 15  # the space prover's rounds against the time prover
+PSNARK_TWIN_BLOCK_LOG = 12  # also the threshold: three to five space rounds
 
 
 def span_totals_with_peaks():
@@ -1244,7 +1284,7 @@ def phase_psnark_elastic(results, card):
     FakeCommitterKeyStream(3, seed=0, max_msm_buffer=2^20), block 2^20,
     the default threshold.  index_stream and the prove timed; the bytes
     round-trip; verified against the dense relation; tampered zc_alpha
-    and set_z_ep rejected.  Then the dense twin at 2^16 (block 2^12,
+    and set_z_ep rejected.  Then the dense twin at 2^15 (block 2^12,
     threshold 12, so the three sumchecks run space-prover rounds): the
     elastic bytes equal the time prover's on to_dense() with the τ = 1
     key of the same generators, and index_stream equals index there.
@@ -1364,6 +1404,274 @@ def phase_psnark_elastic(results, card):
                          if k.startswith(("psnark::", "tensorcheck::"))},
                span_counts=spans.count, launches=launches, lanes=lanes, card=card)
     log(json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
+# Phase 5f: the multi-device paths and GLV
+# ---------------------------------------------------------------------------
+
+MESH_SIZE = 4
+GLV_PAIRS = 3  # alternating GLV off/on MSMs at 2^20, printed, not claimed
+
+
+def glv_config(flag: str):
+    """GEMINI_TPU_GLV=flag inside the block."""
+    return env_config("GEMINI_TPU_GLV", flag)
+
+
+def glv_edge_scalars():
+    """0, 1, LAMBDA, R - 1 and the scalars whose rounded quotient q is
+    Z2 // 2 and Z2 // 2 + 1 (the two sides of decompose's balance)."""
+    from gemini_tpu_torch.ops import glv
+    from gemini_tpu_torch.params import R
+
+    def k_with_q(target):
+        k0 = target * R // glv.Z2
+        return next(k for k in range(k0 - 4, k0 + 5)
+                    if (k * glv.Z2 + R // 2) // R == target)
+
+    return [0, 1, glv.LAMBDA, R - 1, k_with_q(glv.Z2 // 2),
+            k_with_q(glv.Z2 // 2 + 1)]
+
+
+def check_glv_decompose(sc):
+    """decompose on the card over bench.py's 2^20 scalars plus the edge
+    scalars; on a sample of 4096 lanes plus the edges, the card's limbs
+    and flags equal the CPU's, k1 + k2 lambda == k (mod r) and both
+    magnitudes are below COMPONENT_BOUND.  Returns the device profile
+    of one decompose at 2^20 (its launches per 2^20 MSM)."""
+    import torch
+
+    from gemini_tpu_torch.fields.fp import FR
+    from gemini_tpu_torch.ops import glv
+    from gemini_tpu_torch.params import R
+
+    n = sc.shape[1]
+    edge = glv_edge_scalars()
+    full = torch.cat([sc, FR.tensor(edge, "cuda", mont=False)], dim=1)
+    parts = glv.decompose(full)
+    lanes = random.Random(5).sample(range(n), 4096) + list(range(n, n + len(edge)))
+    idx = torch.tensor(lanes, device="cuda")
+    got = [t[..., idx].cpu() for t in parts]
+    cols = full[:, idx].cpu()
+    for a, b in zip(glv.decompose(cols), got):
+        if not torch.equal(a, b):
+            raise AssertionError("glv.decompose: the card's limbs differ from the CPU's")
+    if not (got[3][-2:].tolist() == [False, True]):
+        raise AssertionError("glv.decompose: the balance edge scalars took the "
+                             "wrong branch")
+    to_int = lambda t, j: sum(int(v) << (16 * i) for i, v in enumerate(t[:, j].tolist()))
+    for j in range(len(lanes)):
+        k1 = -to_int(got[0], j) if got[1][j] else to_int(got[0], j)
+        k2 = -to_int(got[2], j) if got[3][j] else to_int(got[2], j)
+        if (k1 + k2 * glv.LAMBDA - to_int(cols, j)) % R or \
+                max(abs(k1), abs(k2)) >= glv.COMPONENT_BOUND:
+            raise AssertionError(f"glv.decompose: lane {lanes[j]} does not recombine")
+    log(f"glv.decompose 2^20 + {len(edge)} edge scalars on the card: 4096 sampled "
+        "lanes and the edges equal the CPU's and recombine, within the bound")
+
+    def one():
+        glv.decompose(sc)
+        torch.cuda.synchronize()
+
+    one()
+    return device_profile(one)
+
+
+def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
+    """5f: the GLV MSM (GEMINI_TPU_GLV=1) and the multi-device paths on
+    a 4-shard mesh.  Every check raises on failure."""
+    import torch
+
+    from gemini_tpu_torch import hostcurve
+    from gemini_tpu_torch.curve import g1
+    from gemini_tpu_torch.curve import g1_kernels as gk
+    from gemini_tpu_torch.fields.fp import FR
+    from gemini_tpu_torch.hostcurve import g1_msm
+    from gemini_tpu_torch.kzg.commit import CommitterKey, VerifierKey
+    from gemini_tpu_torch.ops.msm import msm, msm_batch
+    from gemini_tpu_torch.params import R
+    from gemini_tpu_torch.parallel import (Mesh, ShardedTimeProver,
+                                           msm_batch_multichip, msm_multichip)
+    from gemini_tpu_torch.psnark import Proof as PProof
+    from gemini_tpu_torch.psnark import index
+    from gemini_tpu_torch.relation import DummyR1csStream, random_r1cs
+    from gemini_tpu_torch.serialize import psnark_proof_bytes, snark_proof_bytes
+    from gemini_tpu_torch.snark import Proof
+    from gemini_tpu_torch.streaming import CommitterKeyStream, FakeCommitterKeyStream
+    from gemini_tpu_torch.subprotocols.sumcheck import Sumcheck, TimeProver
+    from gemini_tpu_torch.transcript import GeminiTranscript
+
+    out = {"card": card}
+    pts, sc = msm_in
+    decode = lambda p: g1.decode_jacobian(p)[0]
+    timed_s = {}
+
+    def timed(label, fn):
+        t0 = time.time()
+        r = fn()
+        torch.cuda.synchronize()
+        timed_s[label] = time.time() - t0
+        return r
+
+    # GLV on the card
+    prof = check_glv_decompose(sc)
+    if prof is None:
+        raise AssertionError("decompose: the profiler recorded no device event")
+    out["decompose_2^20"] = {
+        "device_events": prof["device_events"],
+        "kernels": prof["device_events"] - prof["memcpy_memset_count"],
+        "memcpy_memset": prof["memcpy_memset_count"],
+        "device_busy_ms": prof["device_busy_ms"], "window_ms": prof["window_ms"]}
+    p16, s16, s16_np, host_pts = bench_msm_inputs(1 << 16)
+    ks = [sum(int(s16_np[i, j]) << (16 * i) for i in range(FR.n_limbs))
+          for j in range(1 << 16)]
+    want16 = g1_msm([host_pts[j % 512] for j in range(1 << 16)], ks)
+    with glv_config("1"):
+        if decode(msm(p16, s16)) != want16:
+            raise AssertionError("GLV MSM 2^16 differs from host Pippenger")
+        gk.reset_launches()
+        got = timed("glv_msm_2^20_first", lambda: decode(msm(pts, sc)))
+        glv_launches, glv_lanes = dict(gk.LAUNCHES), dict(gk.LANES)
+        if got != msm_out["projective"]:
+            raise AssertionError("GLV MSM 2^20 differs from phase 3's MSM")
+        with jacobian_config():
+            if decode(msm(pts, sc)) != msm_out["jacobian"]:
+                raise AssertionError("GLV MSM 2^20, GEMINI_TPU_PROJ=0, differs "
+                                     "from phase 3's MSM")
+    for name in ("padd", "padd01", "mont_mul"):
+        if glv_launches[name] == 0:
+            raise AssertionError(f"the GLV MSM launched no {name} kernel")
+        results[name]["glv_launches"] = glv_launches[name]
+        results[name]["glv_lanes"] = glv_lanes[name]
+    pairs = []
+    for _ in range(GLV_PAIRS):
+        row = {}
+        for flag in ("0", "1"):
+            with glv_config(flag):
+                t0 = time.time()
+                msm(pts, sc)
+                torch.cuda.synchronize()
+                row["glv_on_s" if flag == "1" else "glv_off_s"] = time.time() - t0
+        pairs.append(row)
+    log("GLV MSM: 2^16 == host Pippenger; 2^20 == phase 3's MSM, projective and "
+        f"Jacobian; off/on pairs at 2^20 (host clock): {pairs}")
+
+    # The mesh
+    if torch.cuda.device_count() >= MESH_SIZE:
+        mesh = Mesh([torch.device("cuda", i) for i in range(MESH_SIZE)])
+        out["mesh_kind"] = f"{MESH_SIZE} cards"
+    else:
+        mesh = Mesh([torch.device("cuda", 0)] * MESH_SIZE)
+        out["mesh_kind"] = f"{MESH_SIZE} shards on one card"
+    out["mesh"] = [str(d) for d in mesh.devices]
+    log(f"mesh: {out['mesh_kind']}, {out['mesh']}")
+    got = timed("msm_multichip_2^20", lambda: decode(msm_multichip(
+        pts, sc, devices=mesh.devices)))
+    if got != msm_out["projective"]:
+        raise AssertionError("msm_multichip 2^20 differs from msm")
+    sets = [sc[:, :1 << k] for k in range(18, 8, -1)]
+    single = timed("msm_batch_fold_tree", lambda: [decode(r) for r in msm_batch(pts, sets)])
+    multi = timed("msm_batch_multichip_fold_tree", lambda: [
+        decode(r) for r in msm_batch_multichip(pts, sets, devices=mesh.devices)])
+    if single != multi:
+        raise AssertionError("msm_batch_multichip (2^18 ... 2^9) differs from msm_batch")
+
+    n = 1 << 18
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    f, g = (torch.randint(0, 1 << 16, (FR.n_limbs, n), generator=gen, device="cuda",
+                          dtype=torch.int32) for _ in range(2))
+    f[-1] &= 0x0FFF
+    g[-1] &= 0x0FFF
+    twist = random.Random(18).randrange(R)
+    dense = timed("sumcheck_2^18_dense", lambda: Sumcheck.prove(
+        GeminiTranscript(b"M"), TimeProver(f, g, twist)))
+    sharded = timed("sumcheck_2^18_sharded", lambda: Sumcheck.prove(
+        GeminiTranscript(b"M"), ShardedTimeProver(mesh, f, g, twist)))
+    if (dense.messages, dense.challenges, dense.final_foldings) != \
+            (sharded.messages, sharded.challenges, sharded.final_foldings):
+        raise AssertionError("ShardedTimeProver 2^18 differs from TimeProver")
+
+    host_calls = [0]
+    pippenger = hostcurve.g1_msm_pippenger
+
+    def counted(*a):
+        host_calls[0] += 1
+        return pippenger(*a)
+
+    gk.reset_launches()
+    hostcurve.g1_msm_pippenger = counted
+    try:
+        proof = timed("snark_2^18_mesh_prove", lambda: Proof.new_time(r1cs, ck,
+                                                                    mesh=mesh))
+    finally:
+        hostcurve.g1_msm_pippenger = pippenger
+    mesh_launches, mesh_lanes = dict(gk.LAUNCHES), dict(gk.LANES)
+    if snark_proof_bytes(proof) != proof_18:
+        raise AssertionError("the 2^18 SNARK with mesh= differs from phase 5's proof")
+    proof.verify(r1cs, VerifierKey.from_committer_key(ck))
+    if host_calls[0]:
+        raise AssertionError(f"the mesh prove ran {host_calls[0]} host MSMs")
+    for name in ("padd", "padd01", "mont_mul"):
+        if mesh_launches[name] == 0:
+            raise AssertionError(f"the 2^18 mesh prove launched no {name} kernel")
+        results[name]["mesh_launches"] = mesh_launches[name]
+        results[name]["mesh_lanes"] = mesh_lanes[name]
+    log("mesh: msm_multichip 2^20 == msm, msm_batch_multichip == msm_batch, "
+        "ShardedTimeProver 2^18 == TimeProver, the 2^18 SNARK with mesh= has "
+        "phase 5's bytes and verifies, no host MSM")
+
+    gs, gp, ge = (golden_file(f"{k}_golden.json") for k in ("snark", "psnark",
+                                                            "elastic"))
+    for config in ("projective", "jacobian"):
+        ctx = jacobian_config() if config == "jacobian" else contextlib.nullcontext()
+        with ctx, glv_config("1"):
+            r1 = random_r1cs(random.Random(gs["r1cs_seed"]), gs["n"], device="cuda")
+            ck1 = CommitterKey.new(max_degree=gs["max_degree"],
+                                   max_eval_points=gs["max_eval_points"],
+                                   seed=gs["srs_seed"], device="cuda")
+            p = Proof.new_time(r1, ck1, mesh=mesh)
+            if snark_proof_bytes(p).hex() != gs["proof_hex"]:
+                raise AssertionError(f"golden SNARK, mesh= and GLV ({config}), "
+                                     "differs from gemini_tpu's bytes")
+            p.verify(r1, VerifierKey.from_committer_key(ck1))
+            p = Proof.new_elastic(r1, CommitterKeyStream(ck1, max_msm_buffer=8,
+                                                         mesh=mesh),
+                                  block_size=8, threshold=2)
+            if snark_proof_bytes(p).hex() != gs["proof_hex"]:
+                raise AssertionError(f"golden elastic SNARK, mesh= and GLV ({config}), "
+                                     "differs from gemini_tpu's bytes")
+            stream = DummyR1csStream(ge["n"], ge["e"], device="cuda")
+            fake = FakeCommitterKeyStream(max_eval_points=ge["max_eval_points"],
+                                          seed=ge["srs_seed"],
+                                          max_msm_buffer=ge["max_msm_buffer"],
+                                          device="cuda", mesh=mesh)
+            p = Proof.new_elastic(stream, fake, block_size=ge["block_size"],
+                                  threshold=ge["threshold"])
+            if snark_proof_bytes(p).hex() != ge["proof_hex"]:
+                raise AssertionError(f"dummy-stream elastic SNARK, mesh= and GLV "
+                                     f"({config}), differs from gemini_tpu's bytes")
+            p.verify(stream.to_dense(), fake.verifier_key())
+            r1 = random_r1cs(random.Random(gp["r1cs_seed"]), gp["n"],
+                             row_nnz=gp["row_nnz"], device="cuda")
+            ck1 = CommitterKey.new(max_degree=gp["max_degree"],
+                                   max_eval_points=gp["max_eval_points"],
+                                   seed=gp["srs_seed"], device="cuda")
+            idx = index(ck1, r1)
+            p = PProof.new_time(ck1, r1, idx, mesh=mesh)
+            if psnark_proof_bytes(p).hex() != gp["proof_hex"]:
+                raise AssertionError(f"golden pSNARK, mesh= and GLV ({config}), "
+                                     "differs from gemini_tpu's bytes")
+            p.verify(r1, VerifierKey.from_committer_key(ck1), idx, gp["num_non_zero"])
+        log(f"golden SNARK, elastic SNARKs (CommitterKeyStream and the τ = 1 fake "
+            f"key with mesh=) and pSNARK with mesh= and GEMINI_TPU_GLV=1 ({config}): "
+            "gemini_tpu's bytes, verified")
+    out.update({"times_s": timed_s, "glv_pairs_2^20_s": pairs,
+                "glv_launches": glv_launches, "glv_lanes": glv_lanes,
+                "mesh_launches": mesh_launches, "mesh_lanes": mesh_lanes,
+                "golden_bytes_equal": ["snark", "snark_elastic", "elastic_dummy",
+                                       "psnark"]})
+    log(json.dumps({"mesh_glv": out}))
 
 
 # ---------------------------------------------------------------------------
@@ -1619,6 +1927,7 @@ def kernel_rows(results, rates, usage):
                 r["lanes"] * ADD_WORD_PRODUCTS_23MM * 2 / IMAD_PER_S * 1e3)
         for key, v in r.items():
             if key.startswith(("ms_", "lanes_per", "psnark_", "elastic_", "float32",
+                               "glv_", "mesh_",
                                "device_ms", "library_device", "library_ms_", "bound_ms_",
                                "bound_rate", "bound_share_", "library_bound_share_")):
                 rows[-1][key] = v
@@ -1651,14 +1960,16 @@ def main() -> int:
     phase("2 kernels", phase_kernels, results)
     rates = phase("2b probes", phase_probes, results)
     phase("2c group API", phase_group_api, results)
-    msm_in = phase("3 MSM", phase_msm)
+    msm_in, msm_out = phase("3 MSM", phase_msm)
     phase("4 golden", phase_golden)
-    r1cs, ck = phase("5 projective 2^18", phase_full, results, False)
+    r1cs, ck, proof_18 = phase("5 projective 2^18", phase_full, results, False)
     with jacobian_config():
-        r1cs_j, ck_j = phase("5b Jacobian 2^18", phase_full, results, True)
+        r1cs_j, ck_j, _ = phase("5b Jacobian 2^18", phase_full, results, True)
     phase("5c pSNARK 2^18", phase_psnark, results, card)
     phase("5d elastic SNARK 2^24", phase_elastic, results, card)
     phase("5e elastic pSNARK 2^20", phase_psnark_elastic, results, card)
+    phase("5f mesh and GLV", phase_mesh_glv, results, card, msm_in, msm_out,
+          r1cs, ck, proof_18)
     phase("6 profile", phase_profile, results, msm_in, r1cs, ck)
     phase("6b needs_dbl count", phase_count_dbl, msm_in, r1cs_j, ck_j)
     log(f"total: {time.time() - t_start:.1f} s")

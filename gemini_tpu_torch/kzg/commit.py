@@ -155,12 +155,23 @@ def vanishing_polynomial_host(points: Sequence[int]) -> List[int]:
 
 
 class CommitterKey:
-    """SRS: device G1 powers of tau + host G2 powers (kzg/time.rs:24)."""
+    """SRS: device G1 powers of tau + host G2 powers (kzg/time.rs:24).
 
-    def __init__(self, powers_of_g: APoint, powers_of_g2: List, tau=None):
+    `devices`: with two or more, every commit MSM splits its lanes
+    across them (parallel/msm.py); each shard's slice of the SRS moves
+    to its device for the call."""
+
+    def __init__(self, powers_of_g: APoint, powers_of_g2: List, tau=None,
+                 devices: Optional[Sequence] = None):
         self.powers_of_g = powers_of_g
         self.powers_of_g2 = powers_of_g2
         self._tau = tau  # retained only by insecure test setups
+        self.devices = devices
+
+    def with_devices(self, devices: Sequence) -> "CommitterKey":
+        """The same SRS, its commits routed across `devices`."""
+        return CommitterKey(self.powers_of_g, self.powers_of_g2, tau=self._tau,
+                            devices=list(devices))
 
     @classmethod
     def new(cls, max_degree: int, max_eval_points: int, seed: int = 0,
@@ -201,7 +212,8 @@ class CommitterKey:
         assert n <= self.powers_of_g.x.shape[1], (
             f"polynomial length {n} exceeds SRS size "
             f"{self.powers_of_g.x.shape[1]}")
-        result = msm_mont_scalars(_apoint_slice(self.powers_of_g, n), coeffs)
+        result = msm_mont_scalars(_apoint_slice(self.powers_of_g, n), coeffs,
+                                  devices=self.devices)
         return g1.decode_jacobian(result)[0]
 
     def batch_commit(self, polys: Sequence) -> List[G1Host]:
@@ -215,6 +227,13 @@ class CommitterKey:
         assert nmax <= self.powers_of_g.x.shape[1], (
             f"polynomial length {nmax} exceeds SRS size "
             f"{self.powers_of_g.x.shape[1]}")
+        if self.devices is not None and len(self.devices) > 1:
+            from ..parallel.msm import msm_batch_multichip
+
+            run = lambda sets: msm_batch_multichip(self.powers_of_g, sets,
+                                                   devices=self.devices)
+        else:
+            run = lambda sets: msm_batch(self.powers_of_g, sets)
         canon = [fp.from_mont(FR, p) for p in polys]
         groups: dict = {}
         for i, p in enumerate(canon):
@@ -223,8 +242,7 @@ class CommitterKey:
         results: list = [None] * len(polys)
         for b in sorted(groups, reverse=True):
             idxs = groups[b]
-            for i, r in zip(idxs, msm_batch(self.powers_of_g,
-                                            [canon[i] for i in idxs])):
+            for i, r in zip(idxs, run([canon[i] for i in idxs])):
                 results[i] = r
         return [g1.decode_jacobian(r)[0] for r in results]
 

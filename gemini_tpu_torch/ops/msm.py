@@ -21,6 +21,10 @@ the host Pippenger only when the tensors lie on the CPU; on CUDA every
 MSM takes the kernel pipeline.  `host_max=0` forces the pipeline on
 the CPU (the tests do this, as GEMINI_TPU_HOST_MSM_MAX=0 does in
 gemini_tpu).
+
+With GEMINI_TPU_GLV=1 (`_use_glv`, off by default) full-size scalars
+take the GLV split (ops/glv.py): the lanes double to [P | phi(P)] and
+the windows cover 128-bit components.
 """
 
 from __future__ import annotations
@@ -44,20 +48,22 @@ CHUNK_LANES = 1 << 20
 N_BITS = 255  # Fr scalars
 
 
-def plan_window(n: int):
+def plan_window(n: int, n_bits: int = N_BITS, max_scalar: int | None = None):
     """Pick (window size c, windows-per-chunk Wc) minimizing the
     pipeline's add count with signed digits (the reference's cost model:
     n reduce-chain adds + 2m stop-level scan + m walk-down fix-ups per
     level + m bucket tree-reduce per window, m = 2^(c-1)); the top
-    window must absorb the recode carry (checked against R).  Unlike
-    the reference (whose Wc bounded compiled shapes), Wc then grows to
-    fill CHUNK_LANES."""
+    window must absorb the recode carry (checked against `max_scalar`,
+    default R).  Unlike the reference (whose Wc bounded compiled
+    shapes), Wc then grows to fill CHUNK_LANES."""
+    if max_scalar is None:
+        max_scalar = _R_FR
     if n <= 32:
         return 3, 4
     best = None
     for c in range(4, 21):
-        w = -(-N_BITS // c)
-        if (_R_FR >> (c * (w - 1))) + 1 > (1 << (c - 1)):
+        w = -(-n_bits // c)
+        if (max_scalar >> (c * (w - 1))) + 1 > (1 << (c - 1)):
             continue  # top window could overflow under recode carry
         m = 1 << (c - 1)
         levels = max(0, int(math.log2(max(n // max(m, 1), 1))))
@@ -74,8 +80,12 @@ def plan_window(n: int):
     # Batch more windows per chunk while a chunk stays within
     # CHUNK_LANES lanes: small MSMs then run as a few wide kernel
     # launches instead of one narrow launch chain per window.
-    w = -(-N_BITS // c)
+    w = -(-n_bits // c)
     return c, max(wc, min(w, CHUNK_LANES // n))
+
+
+def default_window(n: int, n_bits: int = N_BITS) -> int:
+    return plan_window(n, n_bits)[0]
 
 
 def extract_digits(scalars: torch.Tensor, c: int, n_bits: int = N_BITS):
@@ -278,20 +288,85 @@ def _msm_host(points: APoint, scalars) -> JPoint:
     return _jpoint_from_host(g1_msm_pippenger(pts, ks), points.x.device)
 
 
-def msm(points: APoint, scalars, host_max: int | None = None) -> JPoint:
+def _use_glv(n_bits: int) -> bool:
+    """The GLV split for full-size Fr scalars, only with GEMINI_TPU_GLV=1
+    (read on every call; default off, as in the reference), and never
+    for scalars of 160 bits or fewer (the split pays only when the
+    windows halve)."""
+    return os.environ.get("GEMINI_TPU_GLV", "0") == "1" and n_bits > 160
+
+
+def _glv_plan(n_lanes: int):
+    from . import glv as glv_mod
+
+    return plan_window(n_lanes, glv_mod.GLV_BITS,
+                       max_scalar=glv_mod.COMPONENT_BOUND)
+
+
+def _glv_window_digits(k1m, k1n, k2m, k2n, c: int):
+    """GLV component limbs -> per-window (mags, negs) over the doubled
+    lane axis [P lanes | phi(P) lanes]; component signs fold into the
+    digit negation flags the sort consumes."""
+    from . import glv as glv_mod
+
+    m1, g1_ = extract_signed_digits(k1m, c, glv_mod.GLV_BITS)
+    m2, g2_ = extract_signed_digits(k2m, c, glv_mod.GLV_BITS)
+    return (torch.cat([m1, m2], dim=1),
+            torch.cat([g1_ ^ k1n[None, :], g2_ ^ k2n[None, :]], dim=1))
+
+
+def _glv_double_points(points: APoint) -> APoint:
+    """[P | phi(P)] along the lane axis: phi scales x by beta (one
+    constant Montgomery product), y and the infinity flags are shared."""
+    from . import glv as glv_mod
+
+    return APoint(torch.cat([points.x, glv_mod.endo_x(points.x)], dim=1),
+                  torch.cat([points.y, points.y], dim=1),
+                  torch.cat([points.inf, points.inf]))
+
+
+def _msm_glv(points: APoint, scalars, c: int | None = None) -> JPoint:
+    """MSM via the GLV split: 2N points (P, phi(P)) over 128-bit
+    components instead of N over 255 bits."""
+    from . import glv as glv_mod
+
+    npad = scan_util.bucket4(points.x.shape[1], floor=256)
+    points, scalars = _pad_points_scalars(points, scalars, npad)
+    c_plan, window_chunk = _glv_plan(2 * npad)
+    if c is None:
+        c = c_plan
+    mags, negs = _glv_window_digits(*glv_mod.decompose(scalars), c)
+    use_proj = _use_proj()
+    totals = _run_chunks(_glv_double_points(points), mags, negs, c,
+                         window_chunk, use_proj)
+    if use_proj:
+        totals = _proj_to_jacobian(*totals)
+    return _horner_host(totals, c, points.x.device)
+
+
+def msm(points: APoint, scalars, c: int | None = None, n_bits: int = N_BITS,
+        glv: bool | None = None, host_max: int | None = None) -> JPoint:
     """MSM over G1: sum_i scalars[i] * points[i].
 
     points: APoint batch (N,); scalars: (FR_LIMBS, N) canonical
-    (non-Montgomery) limbs, each < R.  Returns a JPoint of batch (1,)."""
+    (non-Montgomery) limbs, each < R.  `c` overrides the planned window,
+    `n_bits` bounds the scalars, `glv` forces the GLV split on or off
+    (default `_use_glv`).  Returns a JPoint of batch (1,)."""
     n = points.x.shape[1]
     if n <= _host_msm_max(points.x.device, host_max):
         return _msm_host(points, scalars)
+    if glv is None:
+        glv = _use_glv(n_bits)
+    if glv:
+        return _msm_glv(points, scalars, c)
     # Pad to a power-of-4 bucket with (infinity, 0) pairs: a no-op that
     # keeps every scan level a power of two.
     npad = scan_util.bucket4(n, floor=256)
-    c, window_chunk = plan_window(npad)
+    c_plan, window_chunk = plan_window(npad, n_bits)
+    if c is None:
+        c = c_plan
     points, scalars = _pad_points_scalars(points, scalars, npad)
-    mags, negs = extract_signed_digits(scalars, c)
+    mags, negs = extract_signed_digits(scalars, c, n_bits)
     use_proj = _use_proj()
     totals = _run_chunks(points, mags, negs, c, window_chunk, use_proj)
     if use_proj:
@@ -299,13 +374,22 @@ def msm(points: APoint, scalars, host_max: int | None = None) -> JPoint:
     return _horner_host(totals, c, points.x.device)
 
 
-def msm_mont_scalars(points: APoint, scalars_mont,
-                     host_max: int | None = None) -> JPoint:
-    """MSM taking Montgomery-form Fr scalars (the prover's native form)."""
-    return msm(points, fp.from_mont(FR, scalars_mont), host_max=host_max)
+def msm_mont_scalars(points: APoint, scalars_mont, c: int | None = None,
+                     devices=None, host_max: int | None = None) -> JPoint:
+    """MSM taking Montgomery-form Fr scalars (the prover's native form).
+    With two or more `devices` the lanes are split across them
+    (parallel/msm.py `msm_multichip`)."""
+    sc = fp.from_mont(FR, scalars_mont)
+    if devices is not None and len(devices) > 1:
+        from ..parallel.msm import msm_multichip
+
+        return msm_multichip(points, sc, devices=devices, c=c)
+    return msm(points, sc, c, host_max=host_max)
 
 
-def msm_batch(points: APoint, scalars_sets, host_max: int | None = None):
+def msm_batch(points: APoint, scalars_sets, c: int | None = None,
+              n_bits: int = N_BITS, glv: bool | None = None,
+              host_max: int | None = None):
     """Many MSMs over PREFIXES of the same base array, as one pipeline:
     set i (canonical (FR_LIMBS, n_i)) is multiplied against
     points[:n_i].  All sets are zero-padded to a common pow-4 bucket and
@@ -330,18 +414,32 @@ def msm_batch(points: APoint, scalars_sets, host_max: int | None = None):
                         points.inf[:npad])
     else:
         points, _ = _pad_points_scalars(points, sets[0][:, :0], npad)
-    c, window_chunk = plan_window(npad)
+    if glv is None:
+        glv = _use_glv(n_bits)
+    if glv:
+        from . import glv as glv_mod
+
+        c_plan, window_chunk = _glv_plan(2 * npad)
+    else:
+        c_plan, window_chunk = plan_window(npad, n_bits)
+    if c is None:
+        c = c_plan
     mags_l, negs_l = [], []
     for s in sets:
         if s.shape[1] < npad:
             s = torch.cat([s, s.new_zeros((s.shape[0], npad - s.shape[1]))],
                           dim=1)
-        m, g = extract_signed_digits(s, c)
+        if glv:
+            m, g = _glv_window_digits(*glv_mod.decompose(s), c)
+        else:
+            m, g = extract_signed_digits(s, c, n_bits)
         mags_l.append(m)
         negs_l.append(g)
     W = mags_l[0].shape[0]
     mags = torch.cat(mags_l, dim=0)  # (S*W, lanes)
     negs = torch.cat(negs_l, dim=0)
+    if glv:
+        points = _glv_double_points(points)
     use_proj = _use_proj()
     totals = _run_chunks(points, mags, negs, c, window_chunk, use_proj)
     if use_proj:

@@ -1,0 +1,197 @@
+"""Multi-device MSM: the lanes split across a mesh (port of
+gemini_tpu/parallel/msm.py).
+
+An MSM is a sum: partition (points, scalars) across D devices, run the
+single-device window pipeline (ops/msm.py `_run_chunks`) on each
+shard's lanes on its own device, read every shard's window totals back
+at once, and add the D partials per window on the host before the
+Horner combine.  The bucket phase needs no traffic between shards.
+
+Every shard gets the same padded width, bucket4(ceil(lanes / D),
+floor=256), with (infinity, 0) padding lanes; with GLV the lanes are
+doubled to [P | phi(P)] before they are split.  The plan is
+gemini_tpu's: with GLV on the whole padded width, without on one
+shard's.  A shard whose device differs from the points' gets its slice
+of the points and digits moved there; on one card the move is a
+no-op.  `msm_multichip` never takes the host Pippenger;
+`msm_batch_multichip` does below the host cutoff, as in gemini_tpu.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+
+from ..curve import g1
+from ..curve.g1 import APoint, JPoint
+from ..hostcurve import g1_add, g1_double
+from ..ops import scan as scan_util
+from ..ops.msm import (
+    N_BITS,
+    _glv_double_points,
+    _glv_plan,
+    _glv_window_digits,
+    _host_msm_max,
+    _jpoint_from_host,
+    _msm_host,
+    _pad_points_scalars,
+    _proj_to_jacobian,
+    _run_chunks,
+    _use_glv,
+    _use_proj,
+    extract_signed_digits,
+    msm,
+    msm_batch,
+    plan_window,
+)
+
+
+def _devices(devices: Optional[Sequence]) -> list:
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    from .mesh import default_mesh
+
+    return list(default_mesh().devices)
+
+
+def _shard_totals(points: APoint, mags, negs, devs, per: int, c: int,
+                  window_chunk: int):
+    """Each shard's window totals (Jacobian, (L, W) per coordinate), run
+    on its own device, then ONE readback: a list of d lists of W host
+    points, in shard order."""
+    use_proj = _use_proj()
+    dev0 = devs[0]
+    cols = []
+    for i, dev in enumerate(devs):
+        sl = slice(i * per, (i + 1) * per)
+        pts = APoint(points.x[:, sl].to(dev), points.y[:, sl].to(dev),
+                     points.inf[sl].to(dev))
+        tot = _run_chunks(pts, mags[:, sl].to(dev), negs[:, sl].to(dev), c,
+                          window_chunk, use_proj)
+        if use_proj:
+            tot = _proj_to_jacobian(*tot)
+        cols.append([t.to(dev0) for t in tot])
+    W = mags.shape[0]
+    tot = [torch.cat([col[k] for col in cols], dim=1).cpu() for k in range(3)]
+    pts = g1.decode_jacobian(JPoint(*tot))
+    return [pts[i * W:(i + 1) * W] for i in range(len(devs))]
+
+
+def _horner(shard_pts, w0: int, W: int, c: int):
+    """sum_w 2^(c w) sum_i T_(i, w0 + w) on the host, the d partials of
+    each window added in shard order."""
+    acc = None
+    for w in reversed(range(W)):
+        if acc is not None:
+            for _ in range(c):
+                acc = g1_double(acc)
+        part = None
+        for pts in shard_pts:
+            part = g1_add(part, pts[w0 + w])
+        acc = g1_add(acc, part)
+    return acc
+
+
+def _pad_lanes(points: APoint, mags, negs, npad: int):
+    pad = npad - points.x.shape[1]
+    if pad == 0:
+        return points, mags, negs
+    points, _ = _pad_points_scalars(points, mags[:0], npad)
+    return (points, torch.cat([mags, mags.new_zeros((mags.shape[0], pad))], 1),
+            torch.cat([negs, negs.new_zeros((negs.shape[0], pad))], 1))
+
+
+def msm_multichip(points: APoint, scalars, devices: Optional[Sequence] = None,
+                  c: int | None = None, n_bits: int = N_BITS) -> JPoint:
+    """MSM with points and scalars split across `devices` (default: every
+    CUDA device).  Returns a JPoint of batch (1,) on the points'
+    device."""
+    devs = _devices(devices)
+    n = points.x.shape[1]
+    d = max(1, min(len(devs), n))
+    if d == 1:
+        return msm(points, scalars, c=c, n_bits=n_bits)
+    devs = devs[:d]
+    use_glv = _use_glv(n_bits)
+    lanes = 2 * n if use_glv else n
+    per = scan_util.bucket4(-(-lanes // d), floor=256)
+    npad_lanes = per * d
+    c_plan, window_chunk = (_glv_plan(npad_lanes) if use_glv
+                            else plan_window(per, n_bits))
+    if c is None:
+        c = c_plan
+    if use_glv:
+        from ..ops import glv as glv_mod
+
+        mags, negs = _glv_window_digits(*glv_mod.decompose(scalars), c)
+        points = _glv_double_points(points)
+    else:
+        mags, negs = extract_signed_digits(scalars, c, n_bits)
+    points, mags, negs = _pad_lanes(points, mags, negs, npad_lanes)
+    shard_pts = _shard_totals(points, mags, negs, devs, per, c, window_chunk)
+    return _jpoint_from_host(_horner(shard_pts, 0, mags.shape[0], c),
+                             points.x.device)
+
+
+def msm_batch_multichip(points: APoint, scalars_sets,
+                        devices: Optional[Sequence] = None,
+                        c: int | None = None, n_bits: int = N_BITS,
+                        host_max: int | None = None) -> List[JPoint]:
+    """Many MSMs over PREFIXES of one base array, sharded over devices:
+    the multi-device twin of ops/msm.msm_batch.  Every set's windows
+    stack on the window axis of the same per-shard pipeline; one
+    readback gives every set's per-shard window totals, combined on the
+    host.  Scalars enter canonical (< R).  Returns one JPoint per set."""
+    sets = list(scalars_sets)
+    if not sets:
+        return []
+    devs = _devices(devices)
+    nmax = max(s.shape[1] for s in sets)
+    navail = points.x.shape[1]
+    assert nmax <= navail, f"scalar length {nmax} exceeds base count {navail}"
+    if nmax <= _host_msm_max(points.x.device, host_max):
+        return [
+            _msm_host(APoint(points.x[:, :s.shape[1]], points.y[:, :s.shape[1]],
+                             points.inf[:s.shape[1]]), s)
+            for s in sets
+        ]
+    d = max(1, min(len(devs), nmax))
+    if d == 1:
+        return msm_batch(points, sets, c=c, n_bits=n_bits, host_max=host_max)
+    devs = devs[:d]
+    use_glv = _use_glv(n_bits)
+    lanes = 2 * nmax if use_glv else nmax
+    per = scan_util.bucket4(-(-lanes // d), floor=256)
+    npad_lanes = per * d
+    base_lanes = npad_lanes // 2 if use_glv else npad_lanes
+    c_plan, window_chunk = (_glv_plan(npad_lanes) if use_glv
+                            else plan_window(per, n_bits))
+    if c is None:
+        c = c_plan
+    if navail >= base_lanes:
+        points = APoint(points.x[:, :base_lanes], points.y[:, :base_lanes],
+                        points.inf[:base_lanes])
+    else:
+        points, _ = _pad_points_scalars(points, sets[0][:, :0], base_lanes)
+    mags_l, negs_l = [], []
+    for s in sets:
+        if s.shape[1] < base_lanes:
+            s = torch.cat([s, s.new_zeros((s.shape[0], base_lanes - s.shape[1]))],
+                          dim=1)
+        if use_glv:
+            from ..ops import glv as glv_mod
+
+            m, g = _glv_window_digits(*glv_mod.decompose(s), c)
+        else:
+            m, g = extract_signed_digits(s, c, n_bits)
+        mags_l.append(m)
+        negs_l.append(g)
+    W = mags_l[0].shape[0]
+    mags = torch.cat(mags_l, dim=0)  # (S*W, lanes)
+    negs = torch.cat(negs_l, dim=0)
+    if use_glv:
+        points = _glv_double_points(points)
+    shard_pts = _shard_totals(points, mags, negs, devs, per, c, window_chunk)
+    return [_jpoint_from_host(_horner(shard_pts, si * W, W, c), points.x.device)
+            for si in range(len(sets))]

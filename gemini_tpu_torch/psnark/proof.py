@@ -101,9 +101,21 @@ class Proof:
 
     @staticmethod
     def new_time(ck: CommitterKey, r1cs: R1cs,
-                 idx: Sequence[G1Host]) -> "Proof":
+                 idx: Sequence[G1Host], mesh=None) -> "Proof":
         """Time-efficient prover (psnark/time_prover.rs:69-385), on the
-        device of the relation's tensors (one device)."""
+        device of the relation's tensors.
+
+        `mesh`: an optional `parallel.Mesh`; sumchecks 1 and 2 then run
+        the sharded prover and every commit MSM splits its lanes across
+        the mesh's devices (sumcheck 3 stays the dense batch).  The
+        proof is the single-device one, byte for byte."""
+        if mesh is not None:
+            from ..parallel.sumcheck import ShardedTimeProver
+
+            ck = ck.with_devices(mesh.devices)
+            mk_prover = lambda f, g, tw: ShardedTimeProver(mesh, f, g, tw)
+        else:
+            mk_prover = TimeProver
         dev = r1cs.z.device
         t = start_timer("psnark::matvecs")
         z_a = r1cs.a.matvec(r1cs.z)
@@ -126,7 +138,7 @@ class Proof:
         end_timer(t)
 
         t = start_timer("psnark::sumcheck 1")
-        first_proof = Sumcheck.prove(transcript, TimeProver(z_a, z_b, alpha))
+        first_proof = Sumcheck.prove(transcript, mk_prover(z_a, z_b, alpha))
         end_timer(t)
 
         t = start_timer("psnark::joint matrices")
@@ -165,7 +177,7 @@ class Proof:
              _hadamard(alpha_star, jm.val_c)],
             [1, eta, eta2],
         )
-        second_proof = Sumcheck.prove(transcript, TimeProver(z_star, r_star_val, 1))
+        second_proof = Sumcheck.prove(transcript, mk_prover(z_star, r_star_val, 1))
         second_challenges = poly.tensor_device(FR, second_proof.challenges, dev)
         sc_head = second_challenges[:, :num_non_zero]
         end_timer(t)

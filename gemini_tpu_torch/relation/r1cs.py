@@ -69,6 +69,16 @@ class SparseMatrix:
             device=device,
         )
 
+    def to_rows(self) -> List[List[Tuple[int, int]]]:
+        out: List[List[Tuple[int, int]]] = [[] for _ in range(self.n_rows)]
+        for r, c, v in zip(self.rows, self.cols, self.vals_int):
+            out[int(r)].append((v, int(c)))
+        return out
+
+    @property
+    def nnz(self) -> int:
+        return len(self.vals_int)
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """M x; x (L, n_cols) Montgomery -> (L, n_rows)."""
         return sparse.spmv(FR, self.vals, self.rows_d, self.cols_d, x,

@@ -42,11 +42,23 @@ class Proof:
     tensorcheck_proof: TensorcheckProof
 
     @staticmethod
-    def new_time(r1cs: R1cs, ck: CommitterKey) -> "Proof":
+    def new_time(r1cs: R1cs, ck: CommitterKey, mesh=None) -> "Proof":
         """Time-efficient prover (snark/time_prover.rs:19-118), on the
-        device of the relation's tensors (single device)."""
+        device of the relation's tensors.
+
+        `mesh`: an optional `parallel.Mesh`; both sumchecks then run the
+        sharded prover and every commit MSM splits its lanes across the
+        mesh's devices.  The proof is the single-device one, byte for
+        byte."""
         from ..utils.trace import start_timer, end_timer
 
+        if mesh is not None:
+            from ..parallel.sumcheck import ShardedTimeProver
+
+            ck = ck.with_devices(mesh.devices)
+            mk_prover = lambda f, g, tw: ShardedTimeProver(mesh, f, g, tw)
+        else:
+            mk_prover = TimeProver
         dev = r1cs.z.device
         t = start_timer("snark::matvecs")
         z_a = r1cs.a.matvec(r1cs.z)
@@ -68,7 +80,7 @@ class Proof:
 
         t = start_timer("snark::sumcheck 1")
         first_proof = Sumcheck.prove(
-            transcript, TimeProver(z_a, z_b, alpha)
+            transcript, mk_prover(z_a, z_b, alpha)
         )
         end_timer(t)
 
@@ -102,7 +114,7 @@ class Proof:
 
         t = start_timer("snark::sumcheck 2")
         second_proof = Sumcheck.prove(
-            transcript, TimeProver(abc_tensored, r1cs.z, 1)
+            transcript, mk_prover(abc_tensored, r1cs.z, 1)
         )
         end_timer(t)
 

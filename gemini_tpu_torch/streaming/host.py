@@ -115,6 +115,10 @@ class HostVector:
         """slice() moved to the device with the packed wire format."""
         return to_device_limbs(self.slice(start, end), self.device)
 
+    def to_device(self) -> torch.Tensor:
+        """The whole vector on its device."""
+        return self.device_slice(0, len(self))
+
     def gather(self, idx: np.ndarray) -> "HostVector":
         """items[idx] by numpy fancy indexing on the host limbs (a
         DeviceVector reads its limbs back first)."""

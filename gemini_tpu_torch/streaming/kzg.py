@@ -104,12 +104,15 @@ def _lincomb_rev_blocks(hvs, coeffs, block_size: int):
 
 class CommitterKeyStream:
     """Streaming flavour of CommitterKey (kzg/space.rs:59); the key's G1
-    powers and the streamed vectors share a device."""
+    powers and the streamed vectors share a device.  `mesh`: an optional
+    `parallel.Mesh` across whose devices every partial MSM splits its
+    lanes."""
 
     def __init__(self, ck: CommitterKey,
-                 max_msm_buffer: int = 1 << MAX_MSM_BUFFER_LOG):
+                 max_msm_buffer: int = 1 << MAX_MSM_BUFFER_LOG, mesh=None):
         self.ck = ck
         self.max_msm_buffer = max_msm_buffer
+        self.devices = list(mesh.devices) if mesh is not None else None
 
     def bases(self, off: int, m: int):
         """SRS G1 window [off, off+m): the override point of synthetic
@@ -120,9 +123,10 @@ class CommitterKeyStream:
 
     def _partial(self, acc: G1Host, off: int, scalars_mont) -> G1Host:
         """acc + MSM(bases[off:], scalars): one partial MSM folded into
-        the host accumulator."""
+        the host accumulator; its lanes split across the mesh's devices
+        when one was given."""
         part = msm_mont_scalars(self.bases(off, scalars_mont.shape[1]),
-                                scalars_mont)
+                                scalars_mont, devices=self.devices)
         return g1_add(acc, g1.decode_jacobian(part)[0])
 
     def commit(self, hv: HostVector) -> G1Host:
@@ -257,7 +261,9 @@ class FakeCommitterKeyStream(CommitterKeyStream):
     `verifier_key()` checks the proofs."""
 
     def __init__(self, max_eval_points: int = 4, seed: int = 0,
-                 max_msm_buffer: int = 1 << MAX_MSM_BUFFER_LOG, device=None):
+                 max_msm_buffer: int = 1 << MAX_MSM_BUFFER_LOG, device=None,
+                 mesh=None):
+        self.devices = list(mesh.devices) if mesh is not None else None
         rng = random.Random(seed)
         self.g = g1_mul(g1_generator(), rng.randrange(1, R))
         self.g2 = g2_mul(g2_generator(), rng.randrange(1, R))

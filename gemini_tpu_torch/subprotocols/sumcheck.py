@@ -201,6 +201,10 @@ class Sumcheck:
             final_foldings.append(ff)
         return Sumcheck(messages, challenges, rounds, final_foldings)
 
+    @staticmethod
+    def new_time(transcript, f, g, twist: int) -> "Sumcheck":
+        return Sumcheck.prove(transcript, TimeProver(f, g, twist))
+
 
 class VerificationError(Exception):
     pass
