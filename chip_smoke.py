@@ -31,6 +31,15 @@ native host library from the sources in the checkout, then, in order:
      defaults;
   2c. drives the group API on the card: scalar_mul of 2^12 points by
      255-bit scalars and add_mixed, against the host;
+  2d. holds the sumcheck round kernels (sc_message, sc_fused, sc_fold:
+     csrc/sumcheck_kernels.cu) against their plain versions bit for bit
+     at 2^14, 2^16, 2^20 and 2^22 lanes with contiguous and strided
+     (t[:, 0::2]) twist powers, at n = 2 and 4, on edge lanes (zeros,
+     ones, r - 1, the twist at 0 and 1) and on the largest sums at 2^14
+     and 2^22 lanes; times each at 2^14, 2^20 and 2^22 lanes beside its
+     plain version at 2^20; proves a 2^20 sumcheck through round_arrays
+     and holds it against the plain prover (messages, challenges, final
+     foldings; 1 message launch, 19 fused rounds, 1 fold, 20 readbacks);
   3. runs the kernel MSM pipeline at 2^16 against the host Pippenger and
      times it at 2^20 on bench.py's inputs, in the projective and in the
      Jacobian configuration (GEMINI_TPU_PROJ=0);
@@ -51,14 +60,19 @@ native host library from the sources in the checkout, then, in order:
      shows that the prove went through padd, padd01 and mont_mul;
   5b. does the same under GEMINI_TPU_PROJ=0 and shows that the SRS and
      the prove went through the Jacobian add kernel and not padd/padd01;
+     in both, the prove's sumcheck rounds run on the round kernels, and
+     phase 5 proves once more with the plain round for the sumcheck
+     spans beside the kernels' (the same bytes);
   5c. the pSNARK at 2^18 (examples/psnark.py -i 18): dummy_r1cs(Random(0),
      2^18), SRS built on the card with max_degree = 2n + nnz + 2, index,
      prove and verify each timed on the host clock ending in a
      synchronize, the bytes -> parse -> verify round trip, tampered
      zc_alpha and set_z_ep rejected; prints one JSON line with the
      times, proof bytes, psnark::* spans, launches and lanes per kernel
-     (counts reset before the prove; padd, padd01 and mont_mul must
-     each launch), peak device memory and the card line;
+     (counts reset before the prove; padd, padd01, mont_mul and the
+     round kernels must each launch), sumcheck 3's provers, rounds and
+     readbacks (one per round with messages, not one per prover), peak
+     device memory and the card line;
   5d. the elastic SNARK (examples/snark.py -i 24, BASELINE config 4):
      DummyR1csStream(2^24, e = Random(0).randrange(1, R)) with
      FakeCommitterKeyStream(3, seed=0, max_msm_buffer=2^20), block size
@@ -69,8 +83,9 @@ native host library from the sources in the checkout, then, in order:
      a tampered zc_alpha rejected; prints one {"snark_elastic_logn": 24,
      ...} JSON line (prove and verify seconds, proof bytes, peak device
      memory, host RSS before the prove (after a heap trim), its peak and
-     the difference, spans, launches and lanes; padd and padd01 must
-     launch, counts reset before the prove) with the card line;
+     the difference, spans, launches and lanes; padd, padd01 and the
+     round kernels must launch, counts reset before the prove) with the
+     card line;
   5e. the elastic pSNARK (examples/psnark.py -i 20 --giant):
      DummyR1csStream(2^20, e) with FakeCommitterKeyStream(3, seed=0,
      max_msm_buffer=2^20), block size 2^20, threshold 22: index_stream
@@ -85,8 +100,8 @@ native host library from the sources in the checkout, then, in order:
      prove and verify seconds, proof bytes, psnark::* and
      tensorcheck::* spans, the device peak and the span it falls in,
      host RSS before the prove and what it added, launches and lanes
-     per kernel; padd, padd01 and mont_mul must launch, counts reset
-     before the prove) with the card line;
+     per kernel; padd, padd01, mont_mul and the round kernels must
+     launch, counts reset before the prove) with the card line;
   5f. the GLV MSM and the multi-device paths: glv.decompose on bench.py's
      2^20 scalars plus the edge scalars (4096 sampled lanes and the
      edges equal the CPU's, recombine mod r and stay under the bound;
@@ -100,11 +115,17 @@ native host library from the sources in the checkout, then, in order:
      phase 3, msm_batch_multichip on a fold-tree batch (2^18 ... 2^9)
      against msm_batch, ShardedTimeProver 2^18 against TimeProver, the
      2^18 SNARK with mesh= (phase 5's bytes, verified, timed; padd,
-     padd01 and mont_mul must launch, no host MSM may run), and with
+     padd01, mont_mul, sc_message and sc_fold must launch, no host MSM
+     may run), and with
      mesh= and GEMINI_TPU_GLV=1 in both configurations the golden
      SNARK, the golden elastic SNARKs (CommitterKeyStream and the
      τ = 1 fake key with mesh=) and the golden pSNARK against
      gemini_tpu's bytes; prints one {"mesh_glv": ...} JSON line;
+  5g. runs each entry point's main in process on the card (snark -i 12
+     --time-prover, snark -i 16, psnark -i 10 with and without
+     --elastic, psnark -i 12 --giant, pc -d 12 -p 4 -m 3): each must name
+     the card and verify (the giant pSNARK against its dense relation);
+     prints their output and one {"examples": ...} JSON line;
   6. profiles one projective MSM at 2^20, one Jacobian MSM at 2^20, one
      projective 2^18 prove and two streamed passes of the elastic prove
      (a space-prover round over two 2^20 blocks, one 2^20 block of the
@@ -120,15 +141,17 @@ native host library from the sources in the checkout, then, in order:
      phase prints its seconds and the host RSS at its start and end.
 
 Each kernel's launch count is read from its own path, with every count
-set to 0 just before the path runs: padd, padd01, mont_mul from the
-projective prove (5), add from the Jacobian prove (5b), dbl from the
-group API (2c), vpu_chain from vpubench, copy_add from mmbench (2b).
+set to 0 just before the path runs: padd, padd01, mont_mul and the
+round kernels from the projective prove (5), add from the Jacobian
+prove (5b), dbl from the group API (2c), vpu_chain from vpubench,
+copy_add from mmbench (2b).
 The pSNARK prove's (5c) padd, padd01 and mont_mul launches are the
 table's `psnark_launches`, the 2^24 elastic prove's (5d) its
 `elastic_launches`, the 2^20 elastic pSNARK prove's (5e) its
 `psnark_elastic_launches` (every kernel); the GLV MSM's (5f) its
 `glv_launches` and the 2^18 mesh prove's (5f) its `mesh_launches`
-(padd, padd01, mont_mul).
+(padd, padd01, mont_mul and the round kernels; these also carry 5c's,
+5d's and 5e's counts).
 
 Any failure raises and the script exits non-zero; without a CUDA device
 it exits non-zero before printing a result.  Tolerance everywhere:
@@ -168,9 +191,21 @@ COORDS_IN_OUT = {"padd": (6, 3), "padd01": (4, 3), "mont_mul": (2, 1),
                  "add": (6, 3), "dbl": (3, 3)}
 G1_SOURCE = "gemini_tpu_torch/csrc/g1_kernels.cu"
 PROBE_SOURCE = "gemini_tpu_torch/csrc/probes.cu"
-KERNELS = ("padd", "padd01", "mont_mul", "add", "dbl", "vpu_chain", "copy_add")
+SC_SOURCE = "gemini_tpu_torch/csrc/sumcheck_kernels.cu"
+SC_KERNELS = ("sc_message", "sc_fused", "sc_fold")
+KERNELS = ("padd", "padd01", "mont_mul", "add", "dbl", "vpu_chain", "copy_add",
+           *SC_KERNELS)
 SOURCES = {k: G1_SOURCE for k in KERNELS[:5]}
-SOURCES.update(vpu_chain=PROBE_SOURCE, copy_add=PROBE_SOURCE)
+SOURCES.update(vpu_chain=PROBE_SOURCE, copy_add=PROBE_SOURCE,
+               **dict.fromkeys(SC_KERNELS, SC_SOURCE))
+# The sumcheck round kernels at n lanes of f and g (64 bytes per (16,)
+# int32 element): Fr products per lane and bytes moved per lane (message:
+# f, g and n/2 twist powers read; fused: f, g and n/4 powers read, f2
+# and g2 written; fold: f, g read, f2, g2 written).  An 8-word CIOS
+# product is 2 x 64 word products, two IMADs each.
+FR_PRODUCT_IMADS = 2 * 64 * 2
+SC_PRODUCTS_PER_LANE = {"sc_message": 3, "sc_fused": 2.5, "sc_fold": 1}
+SC_BYTES_PER_LANE = {"sc_message": 160, "sc_fused": 208, "sc_fold": 192}
 REPLACES = {
     "padd": "gemini_tpu/curve/pallas_g1.py:616",
     "padd01": "gemini_tpu/curve/pallas_g1.py:624",
@@ -179,6 +214,10 @@ REPLACES = {
     "dbl": "gemini_tpu/curve/pallas_g1.py:604",
     "vpu_chain": "benches/vpubench.py:31",
     "copy_add": "benches/mmbench.py:31",
+    # XLA-fused in the reference, no Pallas kernel
+    "sc_message": "gemini_tpu/subprotocols/sumcheck.py:78",
+    "sc_fused": "gemini_tpu/subprotocols/sumcheck.py:117",
+    "sc_fold": "gemini_tpu/subprotocols/sumcheck.py:187",
 }
 
 
@@ -789,6 +828,187 @@ def phase_group_api(results):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2d: the sumcheck round kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_round():
+    """Run the sumcheck round's plain versions on the card: the module's
+    three dispatchers swapped for them, so TimeProver is otherwise the
+    same code (the reference prover of phases 2d and 5)."""
+    from gemini_tpu_torch.subprotocols import sumcheck as sc
+
+    saved = sc._round_message_kernel, sc._fold_kernel, sc._fused_round
+    sc._round_message_kernel = sc._round_message_plain
+    sc._fold_kernel = sc._fold_plain
+    sc._fused_round = sc._fused_round_plain
+    try:
+        yield
+    finally:
+        sc._round_message_kernel, sc._fold_kernel, sc._fused_round = saved
+
+
+def sc_launches():
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
+
+    return dict(sck.LAUNCHES)
+
+
+def fr_random(gen, m):
+    """(16, m) int32 random canonical Fr limbs on the card (top limb below
+    0x4000, so every value is below 2^254 < r)."""
+    import torch
+
+    x = torch.randint(0, 1 << 16, (16, m), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    x[-1] &= 0x3FFF
+    return x
+
+
+def check_round_kernels(results, f, g, t, twist, r, what):
+    """message, fused round and fold on (f, g, t) against the plain
+    versions, bit for bit (fused only for 4 lanes or more)."""
+    from gemini_tpu_torch.params import R
+    from gemini_tpu_torch.subprotocols import sumcheck as sc
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
+
+    rt, tw2 = r * twist % R, twist * twist % R
+    cases = [("sc_message", lambda: (sck.message(f, g, t, twist),),
+              lambda: (sc._round_message_plain(f, g, t, twist),)),
+             ("sc_fold", lambda: sck.fold(f, g, r, rt),
+              lambda: sc._fold_plain(f, g, t, r, rt)[:2])]
+    if f.shape[1] >= 4:
+        cases.append(("sc_fused", lambda: sck.fused_round(f, g, t, r, rt, tw2),
+                      lambda: sc._fused_round_plain(f, g, t, r, rt, tw2)))
+    for name, kern, plain in cases:
+        err = compare(name, kern(), plain(), what)
+        res = results.setdefault(name, {"max_abs_err": 0, "bit_exact": True})
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+
+
+SC_SIZES = (1 << 14, 1 << 16, 1 << 20, 1 << 22)
+
+
+def phase_sumcheck_kernels(results):
+    """2d: the sumcheck round kernels (message, fused round, fold) against
+    their plain versions, bit for bit: random canonical inputs at 2^14,
+    2^16, 2^20 and 2^22 lanes, with contiguous twist powers and the
+    strided view t[:, 0::2] the folds leave; one pair (n = 2; the fused
+    round at n = 4); edge lanes at 2^14 (zeros, Montgomery ones, r - 1
+    everywhere, the twist at 0 and 1) and the largest sums at 2^14 and
+    2^22 (f = r - 1, g = T = 1, twist 0: every term r - 1).  Then each
+    kernel timed at 2^14, 2^20 and 2^22 lanes (guarded events) beside
+    its plain version at 2^20 (host clock), and a full 2^20 sumcheck
+    through round_arrays against the plain prover: messages, challenges
+    and final foldings, one message launch, 19 fused rounds, one
+    terminal fold and 20 readbacks."""
+    import torch
+
+    from gemini_tpu_torch.benches.timing import event_ms
+    from gemini_tpu_torch.fields.fp import FR
+    from gemini_tpu_torch.params import R
+    from gemini_tpu_torch.subprotocols import sumcheck as sc
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
+    from gemini_tpu_torch.transcript import GeminiTranscript
+
+    gen = torch.Generator(device="cuda").manual_seed(20261017)
+    rnd = random.Random(20261017)
+    inputs = {}
+    for n in (2, 4, *SC_SIZES):
+        f, g, tfull = fr_random(gen, n), fr_random(gen, n), fr_random(gen, n)
+        twist, r = rnd.randrange(R), rnd.randrange(R)
+        for t, kind in ((tfull[:, : n // 2].contiguous(), "contiguous"),
+                        (tfull[:, 0::2], "strided (lane stride 2)")):
+            check_round_kernels(results, f, g, t, twist, r, f"{n} lanes, {kind} t")
+        inputs[n] = (f, g, tfull[:, 0::2], twist, r)
+        log(f"sumcheck kernels: bit-exact against plain on {n} lanes (contiguous "
+            "and strided twist powers)")
+
+    def const(v, n, mont=True):
+        return FR.tensor([v], "cuda", mont=mont).expand(16, n).contiguous()
+
+    n = 1 << 14
+    f, g, t, twist, r = inputs[n]
+    zero, one = const(0, n), const(1, n)
+    rmax = const(R - 1, n, mont=False)  # limbs of r - 1
+    edges = [("zeros", zero, zero, zero[:, : n // 2], twist, r),
+             ("ones", one, one, one[:, : n // 2], 1, 1),
+             ("r - 1 everywhere", rmax, rmax, rmax[:, : n // 2], R - 1, R - 1),
+             ("largest sums", rmax, one, one[:, : n // 2], 0, R - 1),
+             ("twist 0", f, g, t, 0, r), ("twist 1", f, g, t, 1, r)]
+    for label, *args in edges:
+        check_round_kernels(results, *args, f"2^14 lanes, {label}")
+    big = 1 << 22
+    check_round_kernels(results, const(R - 1, big, mont=False), const(1, big),
+                        const(1, big // 2), 0, R - 1, "2^22 lanes, largest sums")
+    want = (big // 2) * (R - 1)
+    got = sck.message(const(R - 1, big, mont=False), const(1, big),
+                      const(1, big // 2), 0).cpu().numpy().astype(object)
+    if [sum(int(x) << (16 * i) for i, x in enumerate(row)) for row in got] != [want] * 2:
+        raise AssertionError("sc_message: the 2^22-lane largest sum is not "
+                             "2^21 (r - 1)")
+    log("sumcheck kernels: bit-exact on n = 2 and 4, on edge lanes at 2^14 "
+        "(zeros, ones, r - 1, twist 0 and 1) and on the largest sums at 2^14 "
+        "and 2^22 lanes")
+
+    for name in SC_KERNELS:
+        res = results[name]
+        for n in (1 << 14, 1 << 20, 1 << 22):
+            f, g, t, twist, r = inputs[n]
+            rt, tw2 = r * twist % R, twist * twist % R
+            kern = {"sc_message": lambda: sck.message(f, g, t, twist),
+                    "sc_fused": lambda: sck.fused_round(f, g, t, r, rt, tw2),
+                    "sc_fold": lambda: sck.fold(f, g, r, rt)}[name]
+            ms = event_ms(kern, 100 if n < 1 << 20 else 20,
+                          spin_cycles=40_000_000)
+            if n == 1 << 20:
+                plain = {"sc_message": lambda: sc._round_message_plain(f, g, t, twist),
+                         "sc_fused": lambda: sc._fused_round_plain(f, g, t, r, rt, tw2),
+                         "sc_fold": lambda: sc._fold_plain(f, g, t, r, rt)}[name]
+                res.update(ms=ms, plain_ms=plain_ms(plain), library_ms=None,
+                           bytes=n * SC_BYTES_PER_LANE[name],
+                           imads=int(n * SC_PRODUCTS_PER_LANE[name] * FR_PRODUCT_IMADS),
+                           lanes=n, source=SC_SOURCE)
+            else:
+                res[f"ms_2^{n.bit_length() - 1}"] = ms
+                res[f"bound_ms_2^{n.bit_length() - 1}"] = max(
+                    n * SC_BYTES_PER_LANE[name] / HBM_BYTES_PER_S,
+                    n * SC_PRODUCTS_PER_LANE[name] * FR_PRODUCT_IMADS / IMAD_PER_S) * 1e3
+        bound = max(res["bytes"] / HBM_BYTES_PER_S, res["imads"] / IMAD_PER_S) * 1e3
+        log(f"kernel {name}: {res['ms_2^14']:.4f} ms at 2^14 lanes, "
+            f"{res['ms']:.4f} ms at 2^20 (bound {bound:.4f} ms, "
+            f"{bound / res['ms']:.1%} of it; plain {res['plain_ms']:.2f} ms), "
+            f"{res['ms_2^22']:.4f} ms at 2^22 (bound {res['bound_ms_2^22']:.4f} ms)")
+
+    # A full 2^20 sumcheck through round_arrays against the plain prover.
+    n = 1 << 20
+    f, g, _, twist, _ = inputs[n]
+    sck.reset_launches()
+    sc.reset_readbacks()
+    t0 = time.time()
+    kern = sc.Sumcheck.prove(GeminiTranscript(b"S"), sc.TimeProver(f, g, twist))
+    torch.cuda.synchronize()
+    kern_s = time.time() - t0
+    launches, readbacks = sc_launches(), sc.READBACKS["round_messages"]
+    with plain_round():
+        t0 = time.time()
+        plain = sc.Sumcheck.prove(GeminiTranscript(b"S"), sc.TimeProver(f, g, twist))
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+    if (kern.messages, kern.challenges, kern.final_foldings) != \
+            (plain.messages, plain.challenges, plain.final_foldings):
+        raise AssertionError("the 2^20 sumcheck through round_arrays differs from "
+                             "the plain prover")
+    if launches != {"sc_message": 1, "sc_fused": 19, "sc_fold": 1} or readbacks != 20:
+        raise AssertionError(f"the 2^20 sumcheck: launches {launches}, readbacks "
+                             f"{readbacks}; want 1 message, 19 fused, 1 fold, 20")
+    log(json.dumps({"sumcheck_2^20": {
+        "equal_to_plain": True, "kernel_s": kern_s, "plain_s": plain_s,
+        "launches": launches, "readbacks": readbacks}}))
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: MSM
 # ---------------------------------------------------------------------------
 
@@ -1007,6 +1227,38 @@ def phase_golden():
         prove("jacobian")
 
 
+def require_round_kernels(counts, what, fused=True):
+    """The sumcheck rounds of a prove ran on the round kernels: message
+    and terminal fold launches, and fused rounds where the path fuses."""
+    need = ("sc_message", "sc_fold") + (("sc_fused",) if fused else ())
+    if not all(counts[k] for k in need):
+        raise AssertionError(f"{what} did not run its sumcheck rounds on the "
+                             f"round kernels: {counts}")
+
+
+@contextlib.contextmanager
+def counted_batches():
+    """Records each Sumcheck.prove_batch inside the block: provers, rounds
+    and round-message readbacks."""
+    from gemini_tpu_torch.subprotocols import sumcheck as sc
+
+    saved = sc.Sumcheck.__dict__["prove_batch"]
+    batches = []
+
+    def counted(transcript, provers):
+        before = sc.READBACKS["round_messages"]
+        out = saved.__func__(transcript, provers)
+        batches.append({"provers": len(provers), "rounds": out.rounds,
+                        "readbacks": sc.READBACKS["round_messages"] - before})
+        return out
+
+    sc.Sumcheck.prove_batch = staticmethod(counted)
+    try:
+        yield batches
+    finally:
+        sc.Sumcheck.prove_batch = saved
+
+
 def phase_full(results, jacobian: bool):
     """The 2^18 instance: SRS on the card, prove, verify, tamper.  The
     projective run must launch padd, padd01 and mont_mul; the Jacobian
@@ -1020,6 +1272,8 @@ def phase_full(results, jacobian: bool):
     from gemini_tpu_torch.relation import dummy_r1cs
     from gemini_tpu_torch.serialize import snark_proof_bytes
     from gemini_tpu_torch.snark import Proof, SnarkVerificationError
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
+    from gemini_tpu_torch.utils.trace import SpanTotals
 
     config = "jacobian" if jacobian else "projective"
     logn = 18
@@ -1034,14 +1288,33 @@ def phase_full(results, jacobian: bool):
     setup_launches = dict(gk.LAUNCHES)
 
     gk.reset_launches()
+    sck.reset_launches()
     os.environ["GEMINI_TPU_TRACE"] = "1"
-    t0 = time.time()
-    proof = Proof.new_time(r1cs, ck)
-    torch.cuda.synchronize()
-    prove_s = time.time() - t0
+    with SpanTotals() as spans:
+        t0 = time.time()
+        proof = Proof.new_time(r1cs, ck)
+        torch.cuda.synchronize()
+        prove_s = time.time() - t0
     os.environ.pop("GEMINI_TPU_TRACE")
     launches = dict(gk.LAUNCHES)
     lanes = dict(gk.LANES)
+    sc_l = sc_launches()
+    require_round_kernels(sc_l, f"the 2^{logn} {config} prove")
+    sumcheck_ms = {"kernels": {k: v for k, v in spans.ms.items() if "sumcheck" in k}}
+    if not jacobian:
+        # The same prove with the plain round, then with the kernels again
+        # (host clock, in turns), for the sumcheck spans before and after.
+        for label, ctx in (("plain", plain_round), ("kernels_again",
+                                                    contextlib.nullcontext)):
+            with ctx(), SpanTotals() as again:
+                t0 = time.time()
+                other = Proof.new_time(r1cs, ck)
+                torch.cuda.synchronize()
+                sumcheck_ms[f"{label}_prove_s"] = time.time() - t0
+            if snark_proof_bytes(other) != snark_proof_bytes(proof):
+                raise AssertionError(f"the 2^18 proof ({label}) differs")
+            sumcheck_ms[label] = {k: v for k, v in again.ms.items()
+                                  if "sumcheck" in k}
     t0 = time.time()
     proof.verify(r1cs, vk)
     verify_s = time.time() - t0
@@ -1057,6 +1330,8 @@ def phase_full(results, jacobian: bool):
                 raise AssertionError(f"the 2^{logn} prove launched no {name} kernel")
             results[name]["launches"] = launches[name]
             results[name]["lanes_per_prove"] = lanes[name]
+        for name in SC_KERNELS:
+            results[name]["launches"] = sc_l[name]
 
     bad = copy.deepcopy(proof)
     bad.zc_alpha = (bad.zc_alpha + 1) % R
@@ -1070,7 +1345,8 @@ def phase_full(results, jacobian: bool):
                     "setup_s": setup_s, "prove_s": prove_s, "verify_s": verify_s,
                     "proof_bytes": len(snark_proof_bytes(proof)),
                     "setup_launches": setup_launches, "launches": launches,
-                    "lanes": lanes, "tampered_rejected": True}))
+                    "lanes": lanes, "sc_launches": sc_l, "sumcheck_spans_ms": sumcheck_ms,
+                    "tampered_rejected": True}))
     return r1cs, ck, snark_proof_bytes(proof)
 
 
@@ -1086,6 +1362,8 @@ def phase_psnark(results, card):
     from gemini_tpu_torch.relation import dummy_r1cs
     from gemini_tpu_torch.relation.r1cs import joint_matrices
     from gemini_tpu_torch.serialize import psnark_proof_bytes, psnark_proof_from_bytes
+    from gemini_tpu_torch.subprotocols import sumcheck as sc
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
     from gemini_tpu_torch.utils.trace import SpanTotals
 
     logn = 18
@@ -1106,18 +1384,28 @@ def phase_psnark(results, card):
 
     torch.cuda.reset_peak_memory_stats()
     gk.reset_launches()
-    with SpanTotals() as spans:
+    sck.reset_launches()
+    with SpanTotals() as spans, counted_batches() as batches:
         t0 = time.time()
         proof = Proof.new_time(ck, r1cs, idx)
         torch.cuda.synchronize()
         prove_s = time.time() - t0
     launches, lanes = dict(gk.LAUNCHES), dict(gk.LANES)
+    sc_l = sc_launches()
     peak = torch.cuda.max_memory_allocated()
     for name in ("padd", "padd01", "mont_mul"):
         if launches[name] == 0:
             raise AssertionError(f"the 2^{logn} pSNARK prove launched no {name} kernel")
         results[name]["psnark_launches"] = launches[name]
         results[name]["psnark_lanes"] = lanes[name]
+    require_round_kernels(sc_l, f"the 2^{logn} pSNARK prove")
+    for name in SC_KERNELS:
+        results[name]["psnark_launches"] = sc_l[name]
+    # sumcheck 3: 13 TimeProvers, one readback per round that has messages
+    third = batches[-1]
+    if third["provers"] != 13 or third["readbacks"] != third["rounds"] - 1:
+        raise AssertionError(f"pSNARK sumcheck 3 batch: {third}; want 13 provers "
+                             "and one readback per round with messages")
 
     t0 = time.time()
     proof.verify(r1cs, vk, idx, nnz)
@@ -1146,7 +1434,8 @@ def phase_psnark(results, card):
         "spans_ms": {k: v for k, v in spans.ms.items() if k.startswith("psnark::")},
         "inner_spans_ms": {k: v for k, v in spans.ms.items()
                            if not k.startswith("psnark::")},
-        "launches": launches, "lanes": lanes,
+        "launches": launches, "lanes": lanes, "sc_launches": sc_l,
+        "sumcheck_3": third,
         "max_memory_allocated_bytes": peak, "card": card}))
 
 
@@ -1173,6 +1462,7 @@ def phase_elastic(results, card):
     from gemini_tpu_torch.serialize import snark_proof_bytes
     from gemini_tpu_torch.snark import Proof, SnarkVerificationError
     from gemini_tpu_torch.streaming import FakeCommitterKeyStream
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
     from gemini_tpu_torch.utils.trace import MemoryWatcher, SpanTotals
 
     e = random.Random(0).randrange(1, R)
@@ -1186,6 +1476,7 @@ def phase_elastic(results, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gk.reset_launches()
+    sck.reset_launches()
     out["host_rss_before_trim_bytes"] = MemoryWatcher._rss()
     trim_host_heap()
     out["host_rss_before_prove_bytes"] = MemoryWatcher._rss()
@@ -1204,6 +1495,10 @@ def phase_elastic(results, card):
                                  f"{name} kernel")
         results[name]["elastic_launches"] = launches[name]
         results[name]["elastic_lanes"] = lanes[name]
+    out["sc_launches"] = sc_launches()
+    require_round_kernels(out["sc_launches"], f"the 2^{ELASTIC_LOGN} elastic prove")
+    for name in SC_KERNELS:
+        results[name]["elastic_launches"] = out["sc_launches"][name]
     out["proof_bytes"] = len(snark_proof_bytes(proof))
 
     n = 1 << ELASTIC_CHECK_LOGN
@@ -1302,6 +1597,7 @@ def phase_psnark_elastic(results, card):
     from gemini_tpu_torch.relation.r1cs import joint_matrices
     from gemini_tpu_torch.serialize import psnark_proof_bytes, psnark_proof_from_bytes
     from gemini_tpu_torch.streaming import FakeCommitterKeyStream
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
     from gemini_tpu_torch.utils.trace import MemoryWatcher
 
     e = random.Random(0).randrange(1, R)
@@ -1323,14 +1619,17 @@ def phase_psnark_elastic(results, card):
     torch.cuda.reset_peak_memory_stats()
     gk.reset_launches()
     probes.reset_launches()
+    sck.reset_launches()
     with span_totals_with_peaks() as spans, \
             MemoryWatcher(interval=0.5, threshold_kib=1 << 22) as mem:
         t0 = time.time()
         proof = Proof.new_elastic(fake, stream, idx, block_size=block)
         torch.cuda.synchronize()
         out["prove_s"] = time.time() - t0
-    launches = {**gk.LAUNCHES, **probes.LAUNCHES}
-    lanes = dict(gk.LANES)
+    launches = {**gk.LAUNCHES, **probes.LAUNCHES, **sck.LAUNCHES}
+    lanes = {**gk.LANES, **sck.LANES}
+    require_round_kernels(sc_launches(), f"the 2^{PSNARK_ELASTIC_LOGN} elastic "
+                          "pSNARK prove")
     spans.peak["after the last span"] = torch.cuda.max_memory_allocated()
     stage = max(spans.peak, key=spans.peak.get)
     out.update(max_memory_allocated_bytes=spans.peak[stage],
@@ -1499,6 +1798,7 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
     from gemini_tpu_torch.serialize import psnark_proof_bytes, snark_proof_bytes
     from gemini_tpu_torch.snark import Proof
     from gemini_tpu_torch.streaming import CommitterKeyStream, FakeCommitterKeyStream
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
     from gemini_tpu_torch.subprotocols.sumcheck import Sumcheck, TimeProver
     from gemini_tpu_torch.transcript import GeminiTranscript
 
@@ -1600,6 +1900,7 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
         return pippenger(*a)
 
     gk.reset_launches()
+    sck.reset_launches()
     hostcurve.g1_msm_pippenger = counted
     try:
         proof = timed("snark_2^18_mesh_prove", lambda: Proof.new_time(r1cs, ck,
@@ -1607,6 +1908,11 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
     finally:
         hostcurve.g1_msm_pippenger = pippenger
     mesh_launches, mesh_lanes = dict(gk.LAUNCHES), dict(gk.LANES)
+    mesh_sc = sc_launches()
+    # the sharded prover folds and sums each shard apart (no fused round)
+    require_round_kernels(mesh_sc, "the 2^18 mesh prove", fused=False)
+    for name in SC_KERNELS:
+        results[name]["mesh_launches"] = mesh_sc[name]
     if snark_proof_bytes(proof) != proof_18:
         raise AssertionError("the 2^18 SNARK with mesh= differs from phase 5's proof")
     proof.verify(r1cs, VerifierKey.from_committer_key(ck))
@@ -1669,9 +1975,63 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
     out.update({"times_s": timed_s, "glv_pairs_2^20_s": pairs,
                 "glv_launches": glv_launches, "glv_lanes": glv_lanes,
                 "mesh_launches": mesh_launches, "mesh_lanes": mesh_lanes,
+                "mesh_sc_launches": mesh_sc,
                 "golden_bytes_equal": ["snark", "snark_elastic", "elastic_dummy",
                                        "psnark"]})
     log(json.dumps({"mesh_glv": out}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 5g: the command-line entry points
+# ---------------------------------------------------------------------------
+
+
+EXAMPLES = (("snark", ("-i", "12", "--time-prover")), ("snark", ("-i", "16")),
+            ("psnark", ("-i", "10")), ("psnark", ("-i", "10", "--elastic")),
+            ("psnark", ("-i", "12", "--giant")),
+            ("pc", ("-d", "12", "-p", "4", "-m", "3")))
+
+
+def phase_examples(card):
+    """5g: each example's main (python -m gemini_tpu_torch.examples.<name>)
+    in process on the card at a small size: it must name the card, and
+    its proof must verify (inside the example; the --giant pSNARK here,
+    against its dense relation).  Prints each run's output and one
+    {"examples": ...} JSON line (wall time, proof size, round-kernel
+    launches)."""
+    import importlib
+    import io
+
+    import torch
+
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
+
+    runs = []
+    for name, argv in EXAMPLES:
+        mod = importlib.import_module(f"gemini_tpu_torch.examples.{name}")
+        command = f"python -m gemini_tpu_torch.examples.{name} {' '.join(argv)}"
+        sck.reset_launches()
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(list(argv))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        text = buf.getvalue()
+        log(f"$ {command}\n{text.rstrip()}")
+        if not text.startswith(f"device: {torch.cuda.get_device_name(0)}\n"):
+            raise AssertionError(f"{command}: did not run on the card")
+        if "--giant" in argv:
+            dense = res["stream"].to_dense()
+            res["proof"].verify(dense, res["ck_stream"].verifier_key(), res["index"],
+                                res["stream"].n)
+        elif not res["verified"]:
+            raise AssertionError(f"{command}: not verified")
+        runs.append({"command": command, "wall_s": wall,
+                     "prove_s": res.get("prove_s"),
+                     "proof_size": res.get("proof_size"), "verified": True,
+                     "sc_launches": sc_launches()})
+    log(json.dumps({"examples": runs, "card": card}))
 
 
 # ---------------------------------------------------------------------------
@@ -1681,7 +2041,8 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
 
 OWN_KERNELS = {"padd01_kernel": "padd01", "padd_kernel": "padd",
                "mont_mul_kernel": "mont_mul", "add_kernel": "add",
-               "dbl_kernel": "dbl"}
+               "dbl_kernel": "dbl", "sc_message_kernel": "sc_message",
+               "sc_fused_kernel": "sc_fused", "sc_fold_kernel": "sc_fold"}
 ALL_KERNELS = {**OWN_KERNELS, "vpu_chain_kernel": "vpu_chain",
                "copy_add_kernel": "copy_add"}
 
@@ -1960,6 +2321,7 @@ def main() -> int:
     phase("2 kernels", phase_kernels, results)
     rates = phase("2b probes", phase_probes, results)
     phase("2c group API", phase_group_api, results)
+    phase("2d sumcheck kernels", phase_sumcheck_kernels, results)
     msm_in, msm_out = phase("3 MSM", phase_msm)
     phase("4 golden", phase_golden)
     r1cs, ck, proof_18 = phase("5 projective 2^18", phase_full, results, False)
@@ -1970,6 +2332,7 @@ def main() -> int:
     phase("5e elastic pSNARK 2^20", phase_psnark_elastic, results, card)
     phase("5f mesh and GLV", phase_mesh_glv, results, card, msm_in, msm_out,
           r1cs, ck, proof_18)
+    phase("5g examples", phase_examples, card)
     phase("6 profile", phase_profile, results, msm_in, r1cs, ck)
     phase("6b needs_dbl count", phase_count_dbl, msm_in, r1cs_j, ck_j)
     log(f"total: {time.time() - t_start:.1f} s")

@@ -33,26 +33,25 @@ from ..subprotocols.sumcheck import (TimeProver, _fold_kernel,
 from .mesh import Mesh, shard_vector, split_lanes
 
 
-# (a, b) relaxed (L+2,) limb columns of one shard's block: the dense
-# round message's lane sums.
+# (a, b) relaxed (L+2,) limb rows of one shard's block: the dense round
+# message's lane sums (the round kernel on the card).
 _local_partial_sums = _round_message_kernel
 
 
-def round_message_sharded(mesh: Mesh, f: List, g: List, t_pow: List, twist):
+def round_message_sharded(mesh: Mesh, f: List, g: List, t_pow: List, twist: int):
     """(a, b) as (L+2,) int64 columns on mesh.devices[0]: the shards'
     partial sums, each computed on its own device, added there."""
     dev0 = mesh.devices[0]
     a, b = None, None
     for fs, gs, ts in zip(f, g, t_pow):
-        pa, pb = _local_partial_sums(fs, gs, ts, twist.to(fs.device))
-        pa, pb = pa.to(dev0, I64), pb.to(dev0, I64)
+        pa, pb = _local_partial_sums(fs, gs, ts, twist).to(dev0, I64)
         a, b = (pa, pb) if a is None else (a + pa, b + pb)
     return a, b
 
 
-def fold_sharded(mesh: Mesh, f: List, g: List, t_pow: List, r, r_twist):
+def fold_sharded(mesh: Mesh, f: List, g: List, t_pow: List, r: int, r_twist: int):
     """Shard-local fold of both sides and twist-power subsample."""
-    out = [_fold_kernel(fs, gs, ts, r.to(fs.device), r_twist.to(fs.device))
+    out = [_fold_kernel(fs, gs, ts, r, r_twist)
            for fs, gs, ts in zip(f, g, t_pow)]
     return tuple(list(col) for col in zip(*out))
 
@@ -102,10 +101,8 @@ class ShardedTimeProver:
         if self._tail is not None:
             self._tail.fold(r)
             return
-        dev0 = self.mesh.devices[0]
         self.f, self.g, self.t_pow = fold_sharded(
-            self.mesh, self.f, self.g, self.t_pow, poly.scalar(FR, r, dev0),
-            poly.scalar(FR, r * self.twist % R, dev0))
+            self.mesh, self.f, self.g, self.t_pow, r, r * self.twist % R)
         self.n //= 2
         self.twist = self.twist * self.twist % R
 
@@ -118,8 +115,8 @@ class ShardedTimeProver:
             return msg
         if self.round == self.tot_rounds:
             return None
-        tw = poly.scalar(FR, self.twist, self.mesh.devices[0])
-        a, b = round_message_sharded(self.mesh, self.f, self.g, self.t_pow, tw)
+        a, b = round_message_sharded(self.mesh, self.f, self.g, self.t_pow,
+                                     self.twist)
         self.round += 1
         return tuple(FR.decode_relaxed(torch.stack([a, b], dim=1).cpu()))
 

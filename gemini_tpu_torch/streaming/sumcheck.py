@@ -189,6 +189,8 @@ class ElasticProver:
             self._maybe_switch()
 
     def next_message(self, challenge: Optional[int]):
+        if self.time is not None:  # the dense prover folds and sums in one round
+            return self.time.next_message(challenge)
         if challenge is not None:
             self.fold(challenge)
         if self.time is not None:

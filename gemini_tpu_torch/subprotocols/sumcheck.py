@@ -14,6 +14,11 @@ host (two scalars down, one challenge up per round).  After a fold,
 twist' = twist^2 needs T'_k = T_(2k): a subsample, no new powers.
 Inputs are zero-padded to 2^rounds, which is transcript-identical to
 the reference's ragged chunking.
+
+On the card each round is one launch of a hand-written kernel
+(sumcheck_kernels.py: the fold and the next message fused) and one
+readback, shared by every prover of a batch (`prove_batch`); the plain
+versions below run on CPU tensors and are what the kernels equal.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..fields import fp
@@ -29,6 +35,7 @@ from ..ops import poly
 from ..params import R
 from ..serialize import fr_to_bytes
 from ..transcript import GeminiTranscript
+from . import sumcheck_kernels as sck
 
 
 def required_rounds(max_len: int) -> int:
@@ -43,24 +50,72 @@ def _round_partials(f_e, f_o, g_e, g_o, t_pow, twist):
     cross = fp.add(FR, fp.mont_mul(FR, f_e, g_o),
                    fp.mont_mul(FR, fp.mont_mul(FR, g_e, f_o), twist))
     b_vec = fp.mont_mul(FR, cross, t_pow)
-    return fp.lane_sum(FR, a_vec, axis=1), fp.lane_sum(FR, b_vec, axis=1)
+    return torch.stack([fp.lane_sum(FR, a_vec, axis=1),
+                        fp.lane_sum(FR, b_vec, axis=1)])
 
 
-def _round_message_kernel(f, g, t_pow, twist):
-    """(a, b) relaxed limb columns for the current round:
+def _round_message_plain(f, g, t_pow, twist: int):
+    """(2, L+2) relaxed limbs (a, b) of the current round:
     a = sum_k f[2k] g[2k] T_k,
     b = sum_k (f[2k] g[2k+1] + g[2k] f[2k+1] twist) T_k."""
     f_e, f_o = poly.eo_split(f)
     g_e, g_o = poly.eo_split(g)
-    return _round_partials(f_e, f_o, g_e, g_o, t_pow, twist)
+    return _round_partials(f_e, f_o, g_e, g_o, t_pow,
+                           poly.scalar(FR, twist, f.device))
 
 
-def _fold_kernel(f, g, t_pow, r, r_twist):
+def _fold_plain(f, g, t_pow, r: int, r_twist: int):
     """Fold f (by r * twist) and g (by r) and subsample the twist powers
     (T_k = twist^(2k); the next round needs (twist^2)^(2k) = T_(2k))."""
-    f2 = poly.fold_polynomial(FR, f, r_twist)
-    g2 = poly.fold_polynomial(FR, g, r)
+    f2 = poly.fold_polynomial(FR, f, poly.scalar(FR, r_twist, f.device))
+    g2 = poly.fold_polynomial(FR, g, poly.scalar(FR, r, f.device))
     return f2, g2, t_pow[:, 0::2]
+
+
+def _fused_round_plain(f, g, t_pow, r: int, r_twist: int, twist_next: int):
+    """Fold, then the next round's message: (f2, g2, T', (2, L+2) ab)."""
+    f2, g2, t2 = _fold_plain(f, g, t_pow, r, r_twist)
+    return f2, g2, t2, _round_message_plain(f2, g2, t2, twist_next)
+
+
+# The round on the card: the hand-written kernels of sumcheck_kernels.py
+# for CUDA tensors, the plain versions above for CPU tensors.  Scalars
+# are canonical ints, so no per-round host-to-device copy is needed.
+
+
+def _round_message_kernel(f, g, t_pow, twist: int):
+    if f.is_cuda:
+        return sck.message(f, g, t_pow, twist)
+    return _round_message_plain(f, g, t_pow, twist)
+
+
+def _fold_kernel(f, g, t_pow, r: int, r_twist: int):
+    if f.is_cuda:
+        return (*sck.fold(f, g, r, r_twist), t_pow[:, 0::2])
+    return _fold_plain(f, g, t_pow, r, r_twist)
+
+
+def _fused_round(f, g, t_pow, r: int, r_twist: int, twist_next: int):
+    """Fold + next round message as one dispatch (gemini_tpu's
+    `_fused_round_body`): one launch down, one (2, L+2) message up."""
+    if f.is_cuda:
+        return sck.fused_round(f, g, t_pow, r, r_twist, twist_next)
+    return _fused_round_plain(f, g, t_pow, r, r_twist, twist_next)
+
+
+# Readbacks of round messages (TimeProver.next_message and
+# Sumcheck.prove_batch): a batched round reads all its provers' device
+# messages back in one transfer.
+READBACKS = {"round_messages": 0}
+
+
+def reset_readbacks() -> None:
+    READBACKS["round_messages"] = 0
+
+
+def _readback(ab) -> np.ndarray:
+    READBACKS["round_messages"] += 1
+    return ab.cpu().numpy()
 
 
 class TimeProver:
@@ -76,6 +131,7 @@ class TimeProver:
         self.round = 0
         self.t_pow = poly.powers(FR, self.twist * self.twist % R,
                                  max(n // 2, 1), f.device)
+        self._final: Optional[Tuple[int, int]] = None
 
     @property
     def device(self):
@@ -85,34 +141,65 @@ class TimeProver:
         return self.tot_rounds
 
     def fold(self, r: int) -> None:
-        dev = self.device
         if self.n > 1:
             self.n //= 2
             self.f, self.g, self.t_pow = _fold_kernel(
-                self.f, self.g, self.t_pow, poly.scalar(FR, r, dev),
-                poly.scalar(FR, r * self.twist % R, dev))
+                self.f, self.g, self.t_pow, r, r * self.twist % R)
+            self._final = None
             if self.n == 1:  # keep an even physical length
                 self.f = poly.pad_to(FR, self.f, 2)
                 self.g = poly.pad_to(FR, self.g, 2)
         self.twist = self.twist * self.twist % R
 
+    def round_arrays(self, challenge: Optional[int]):
+        """Advance one round, returning the round message as a device
+        (2, L+2) int32 tensor (None when the rounds are exhausted).
+        Callers that batch many provers read all messages back in one
+        transfer (Sumcheck.prove_batch); `next_message` decodes inline.
+        Fold + message run as one fused launch."""
+        if challenge is not None:
+            if self.n > 1 and self.round < self.tot_rounds:
+                twist_next = self.twist * self.twist % R
+                self.n //= 2
+                self.f, self.g, self.t_pow, ab = _fused_round(
+                    self.f, self.g, self.t_pow, challenge,
+                    challenge * self.twist % R, twist_next)
+                self._final = None
+                self.twist = twist_next
+                self.round += 1
+                return ab
+            self.fold(challenge)  # terminal fold (no message follows)
+        if self.round == self.tot_rounds:
+            return None
+        ab = _round_message_kernel(self.f, self.g, self.t_pow, self.twist)
+        self.round += 1
+        return ab
+
+    @staticmethod
+    def decode_msg(ab) -> Tuple[int, int]:
+        """(2, L+2) relaxed limbs (a tensor, read back here, or a host
+        array) -> (a, b) canonical ints."""
+        arr = ab if isinstance(ab, np.ndarray) else _readback(ab)
+        return tuple(FR.decode_relaxed(arr.T))
+
     def next_message(self, challenge: Optional[int]):
         """Advance one round: fold by the challenge (if any), then return
         the round message (a, b) as canonical ints (None when the rounds
-        are exhausted).  The lane sums come back in one readback."""
-        if challenge is not None:
-            self.fold(challenge)
-        if self.round == self.tot_rounds:
+        are exhausted), in one readback."""
+        ab = self.round_arrays(challenge)
+        if ab is None:
             return None
-        a, b = _round_message_kernel(self.f, self.g, self.t_pow,
-                                     poly.scalar(FR, self.twist, self.device))
-        self.round += 1
-        return tuple(FR.decode_relaxed(torch.stack([a, b], dim=1).cpu()))
+        return TimeProver.decode_msg(ab)
 
     def final_foldings(self) -> Optional[Tuple[int, int]]:
+        """(f0, g0) once the rounds are done, read back once: later
+        rounds of a batch only square the twist."""
         if self.round != self.tot_rounds:
             return None
-        return (FR.decode(self.f[:, :1])[0], FR.decode(self.g[:, :1])[0])
+        if self._final is None:
+            v = FR.decode(torch.cat([self.f[:, :1], self.g[:, :1]], dim=1).cpu())
+            self._final = (v[0], v[1])
+        return self._final
 
 
 def ElasticProver(f, g, twist: int, block_size: int = 1 << 20,
@@ -179,9 +266,22 @@ class Sumcheck:
         challenges: List[int] = []
         verifier_message = None
         for _ in range(rounds):
+            # Every prover's round goes out first; then one readback per
+            # device brings all the device messages back (13 provers in
+            # the pSNARK's sumcheck 3).  Provers without round_arrays
+            # (the streaming and sharded ones) answer with ints.
+            raw = [p.round_arrays(verifier_message) if hasattr(p, "round_arrays")
+                   else p.next_message(verifier_message) for p in provers]
+            by_dev: dict = {}
+            for i, m in enumerate(raw):
+                if isinstance(m, torch.Tensor):
+                    by_dev.setdefault(m.device, []).append(i)
+            for idx in by_dev.values():
+                host = _readback(torch.stack([raw[i] for i in idx]))
+                for i, arr in zip(idx, host):
+                    raw[i] = TimeProver.decode_msg(arr)
             msg_a, msg_b = 0, 0
-            for p, c in zip(provers, coefficients):
-                m = p.next_message(verifier_message)
+            for p, c, m in zip(provers, coefficients, raw):
                 if m is None:
                     ff = p.final_foldings()
                     m = (ff[0] * ff[1] % R, 0)
