@@ -31,15 +31,23 @@ native host library from the sources in the checkout, then, in order:
      defaults;
   2c. drives the group API on the card: scalar_mul of 2^12 points by
      255-bit scalars and add_mixed, against the host;
-  2d. holds the sumcheck round kernels (sc_message, sc_fused, sc_fold:
+  2d. prints each round kernel's registers, spills and resident blocks
+     and warps per SM (one {"round_kernel_usage": ...} line), holds the
+     sumcheck round kernels (sc_message, sc_fused, sc_fold:
      csrc/sumcheck_kernels.cu) against their plain versions bit for bit
-     at 2^14, 2^16, 2^20 and 2^22 lanes with contiguous and strided
-     (t[:, 0::2]) twist powers, at n = 2 and 4, on edge lanes (zeros,
-     ones, r - 1, the twist at 0 and 1) and on the largest sums at 2^14
-     and 2^22 lanes; times each at 2^14, 2^20 and 2^22 lanes beside its
-     plain version at 2^20; proves a 2^20 sumcheck through round_arrays
-     and holds it against the plain prover (messages, challenges, final
-     foldings; 1 message launch, 19 fused rounds, 1 fold, 20 readbacks);
+     at 2^10, 2^12, 2^14, 2^16, 2^20 and 2^22 lanes with contiguous and
+     strided (t[:, 0::2]) twist powers, at n = 2 and 4, on edge lanes
+     (zeros, ones, r - 1, the twist at 0 and 1), on the largest sums at
+     2^14 and 2^22 lanes, on the launch shapes' edges (pair counts around
+     one block, the switch from split to unsplit launches and one wave
+     of resident blocks), with t at lane strides 4 and 8 and with f, g
+     as lane blocks at offsets 0, 1, 2 and 4 of wider tensors; times
+     each at 2^10-2^22 lanes beside its plain version at 2^20, and
+     sc_message there with a pair to a lane and split over two (one
+     {"round_kernel_times": ...} line with the launch shapes); proves a
+     2^20 sumcheck through round_arrays and holds it against the plain
+     prover (messages, challenges, final foldings; 1 message launch, 19
+     fused rounds, 1 fold, 20 readbacks);
   3. runs the kernel MSM pipeline at 2^16 against the host Pippenger and
      times it at 2^20 on bench.py's inputs, in the projective and in the
      Jacobian configuration (GEMINI_TPU_PROJ=0);
@@ -132,7 +140,9 @@ native host library from the sources in the checkout, then, in order:
      dummy stream's abc vector) with torch.profiler and prints, as one
      JSON line, each window's device busy share, device ms per kernel
      (the port's own and the ten largest others), the PyTorch copy
-     kernels' device ms, and the lanes each group-law kernel took;
+     kernels' device ms, and the lanes each group-law kernel took; then
+     the prove's sc_fused and sc_message device ms and launches beside
+     the first design's (one {"round_kernels_prove_2^18": ...} line);
   6b. counts, untimed, the add lanes and warps that need the doubling in
      one more Jacobian MSM at 2^20 and one more Jacobian 2^18 prove;
   7. prints the total seconds, the kernel table as one JSON line
@@ -868,7 +878,7 @@ def fr_random(gen, m):
 
 def check_round_kernels(results, f, g, t, twist, r, what):
     """message, fused round and fold on (f, g, t) against the plain
-    versions, bit for bit (fused only for 4 lanes or more)."""
+    versions, bit for bit (fused only for a multiple of 4 lanes)."""
     from gemini_tpu_torch.params import R
     from gemini_tpu_torch.subprotocols import sumcheck as sc
     from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
@@ -878,7 +888,7 @@ def check_round_kernels(results, f, g, t, twist, r, what):
               lambda: (sc._round_message_plain(f, g, t, twist),)),
              ("sc_fold", lambda: sck.fold(f, g, r, rt),
               lambda: sc._fold_plain(f, g, t, r, rt)[:2])]
-    if f.shape[1] >= 4:
+    if f.shape[1] % 4 == 0:
         cases.append(("sc_fused", lambda: sck.fused_round(f, g, t, r, rt, tw2),
                       lambda: sc._fused_round_plain(f, g, t, r, rt, tw2)))
     for name, kern, plain in cases:
@@ -887,22 +897,150 @@ def check_round_kernels(results, f, g, t, twist, r, what):
         res["max_abs_err"] = max(res["max_abs_err"], err)
 
 
-SC_SIZES = (1 << 14, 1 << 16, 1 << 20, 1 << 22)
+SC_SIZES = (1 << 10, 1 << 12, 1 << 14, 1 << 16, 1 << 20, 1 << 22)
+# The first design's round kernels (a pair a thread, 256-thread blocks,
+# up to 1024 of them): their device ms and launches in phase 6's 2^18
+# SNARK prove (PERF.md section 5), printed beside this design's.
+SC_PROVE_FIRST_DESIGN = {"sc_fused": (0.659, 34), "sc_message": (0.100, 2)}
 
 
-def phase_sumcheck_kernels(results):
+# Each round kernel's instances: (a pair to two lanes, vector loads).
+# The message has a pair-to-a-lane kernel (vector or scalar loads) and
+# a split one (one lane of each operand a thread: scalar loads); the
+# fused round is always split.
+SC_INSTANCES = {"sc_message": ((False, True), (False, False), (True, False)),
+                "sc_fused": ((True, True), (True, False))}
+
+
+def round_kernel_usage(usage):
+    """Each round kernel's ptxas registers and spills (the largest of its
+    instances), and per instance and block size (the wrapper's two) its
+    registers, local bytes and resident blocks and warps per SM (the
+    occupancy API), with the card's SM count; printed as one JSON line.
+    Returns it with resident[kernel][split][threads], the fewer blocks of
+    the kernel's vector and scalar instances."""
+    import torch
+
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
+
+    out, resident = {}, {}
+    for name, instances in SC_INSTANCES.items():
+        inst = {}
+        for split, vec in instances:
+            for threads in (sck.SMALL_THREADS, sck.LARGE_THREADS):
+                occ = sck.occupancy(name, vec, split, threads)
+                occ["warps_per_sm"] = occ["blocks_per_sm"] * threads // 32
+                inst[f"{'split' if split else 'pair'}_{'vector' if vec else 'scalar'}"
+                     f"_{threads}"] = occ
+                per = resident.setdefault(name, {}).setdefault(split, {})
+                per[threads] = min(per.get(threads, 1 << 30), occ["blocks_per_sm"])
+        out[name] = {**usage.get(name, {}), "instances": inst}
+    out["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    log(json.dumps({"round_kernel_usage": out}))
+    return out, resident
+
+
+def check_launch_edges(results, gen, rnd, sms, resident):
+    """The launch shapes' edges (sumcheck_kernels.launch_shape), for the
+    message (2 lanes a pair) and the fused round (4 lanes a pair): one
+    128-thread block plus one unit (65 and 129 pairs), the last pair
+    count whose split units fit one 128-thread block per SM and one
+    beyond (64 x SMs and + 1: the message's switch to a pair a lane, the
+    fused round's to 256-thread blocks), Ws - 1, Ws + 1 and Ws + 128
+    pairs with Ws the pairs of one wave of resident split 256-thread
+    blocks, and for the message's pair-to-a-lane kernel W - 256, W - 1,
+    W + 1 and W + 256 pairs with W its wave (a block fewer, a wave less
+    and plus one pair, one block's pairs on a second pass).  All three
+    kernels run on each lane count, against their plain versions."""
+    from gemini_tpu_torch.params import R
+
+    for name, width in (("sc_message", 2), ("sc_fused", 4)):
+        small = 64 * sms
+        split_wave = resident[name][True][256] * sms * 256 // 2
+        cases = [65, 129, small, small + 1, split_wave - 1, split_wave + 1,
+                 split_wave + 128]
+        if False in resident[name]:
+            wave = resident[name][False][256] * sms * 256
+            cases += [wave - 256, wave - 1, wave + 1, wave + 256]
+        for pairs in cases:
+            n = width * pairs
+            f, g, t = fr_random(gen, n), fr_random(gen, n), fr_random(gen, n // 2)
+            check_round_kernels(results, f, g, t, rnd.randrange(R), rnd.randrange(R),
+                                f"{name}'s edge: {pairs} pairs ({n} lanes)")
+    log(f"sumcheck kernels: bit-exact on the launch shapes' edges (resident blocks "
+        f"per SM by split and block size: {resident}, {sms} SMs)")
+
+
+def time_message_split_and_pair(inputs):
+    """sc_message at each of SC_SIZES with a pair to a lane and with a
+    pair split over two lanes, each on the grid the wrapper's rule
+    (sumcheck_kernels.unit_grid) gives its units (guarded events): the
+    measurement behind launch_shape's choice between them.  Returns
+    {"2^k": {"pair": ms, "split": ms, "chosen": "pair" | "split"}}."""
+    from gemini_tpu_torch.benches.timing import event_ms
+    from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
+
+    rule, out = sck.launch_shape, {}
+    try:
+        for n in SC_SIZES:
+            f, g, t, twist, _ = inputs[n]
+            sck.launch_shape = rule
+            row = {"chosen": "split" if sck._shape(f.device, "sc_message", n // 2)[0]
+                   else "pair"}
+            for split in (False, True):
+                sck.launch_shape = lambda name, pairs, sms, resident, split=split: (
+                    split, *sck.unit_grid(2 * pairs if split else pairs, sms,
+                                          resident[split]))
+                row["split" if split else "pair"] = event_ms(
+                    lambda: sck.message(f, g, t, twist), 100 if n < 1 << 20 else 20,
+                    spin_cycles=40_000_000)
+            out[f"2^{n.bit_length() - 1}"] = row
+    finally:
+        sck.launch_shape = rule
+    return out
+
+
+def check_views(results, gen, rnd):
+    """Operand views at 2^16 lanes: t at lane strides 4 and 8 (deep
+    rounds), and f, g as lane blocks of tensors of odd width at lane
+    offsets 0, 1, 2 and 4 (rows not 8-byte aligned: the scalar-load
+    instances), and at offset 4 of a width that keeps rows aligned (the
+    vector loads on a view)."""
+    from gemini_tpu_torch.params import R
+
+    n = 1 << 16
+    f, g, tbig = fr_random(gen, n), fr_random(gen, n), fr_random(gen, 4 * n)
+    twist, r = rnd.randrange(R), rnd.randrange(R)
+    for step in (4, 8):
+        check_round_kernels(results, f, g, tbig[:, 0::step][:, : n // 2], twist, r,
+                            f"2^16 lanes, t at lane stride {step}")
+    t = tbig[:, 0::2][:, : n // 2]
+    for width, off in ((n + 5, 1), (n + 5, 2), (n + 5, 4), (n + 5, 0), (n + 8, 4)):
+        fb, gb = fr_random(gen, width), fr_random(gen, width)
+        check_round_kernels(results, fb[:, off:off + n], gb[:, off:off + n], t, twist,
+                            r, f"2^16 lanes, f and g at lane {off} of width {width}")
+    log("sumcheck kernels: bit-exact with t at lane strides 4 and 8 and with f, g "
+        "as lane blocks at offsets 0, 1, 2 and 4 of wider tensors")
+
+
+def phase_sumcheck_kernels(results, usage=None):
     """2d: the sumcheck round kernels (message, fused round, fold) against
-    their plain versions, bit for bit: random canonical inputs at 2^14,
-    2^16, 2^20 and 2^22 lanes, with contiguous twist powers and the
-    strided view t[:, 0::2] the folds leave; one pair (n = 2; the fused
-    round at n = 4); edge lanes at 2^14 (zeros, Montgomery ones, r - 1
-    everywhere, the twist at 0 and 1) and the largest sums at 2^14 and
-    2^22 (f = r - 1, g = T = 1, twist 0: every term r - 1).  Then each
-    kernel timed at 2^14, 2^20 and 2^22 lanes (guarded events) beside
-    its plain version at 2^20 (host clock), and a full 2^20 sumcheck
-    through round_arrays against the plain prover: messages, challenges
-    and final foldings, one message launch, 19 fused rounds, one
-    terminal fold and 20 readbacks."""
+    their plain versions, bit for bit: random canonical inputs at 2^10,
+    2^12, 2^14, 2^16, 2^20 and 2^22 lanes, with contiguous twist powers
+    and the strided view t[:, 0::2] the folds leave; one pair (n = 2; the
+    fused round at n = 4); edge lanes at 2^14 (zeros, Montgomery ones,
+    r - 1 everywhere, the twist at 0 and 1) and the largest sums at 2^14
+    and 2^22 (f = r - 1, g = T = 1, twist 0: every term r - 1); the
+    grid's edges (check_launch_edges) and operand views (check_views).
+    Prints each round kernel's registers, spills and resident blocks per
+    SM (round_kernel_usage).  Then each kernel timed at 2^10-2^22 lanes
+    (guarded events) beside its plain version at 2^20 (host clock), with
+    the launch shape of each size, sc_message with a pair to a lane and
+    split over two at each size (time_message_split_and_pair), and a
+    full 2^20 sumcheck through
+    round_arrays against the plain prover: messages, challenges and final
+    foldings, one message launch, 19 fused rounds, one terminal fold and
+    20 readbacks."""
     import torch
 
     from gemini_tpu_torch.benches.timing import event_ms
@@ -912,6 +1050,8 @@ def phase_sumcheck_kernels(results):
     from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
     from gemini_tpu_torch.transcript import GeminiTranscript
 
+    occ, resident = round_kernel_usage(usage or {})
+    sms = occ["sms"]
     gen = torch.Generator(device="cuda").manual_seed(20261017)
     rnd = random.Random(20261017)
     inputs = {}
@@ -951,10 +1091,17 @@ def phase_sumcheck_kernels(results):
     log("sumcheck kernels: bit-exact on n = 2 and 4, on edge lanes at 2^14 "
         "(zeros, ones, r - 1, twist 0 and 1) and on the largest sums at 2^14 "
         "and 2^22 lanes")
+    check_launch_edges(results, gen, rnd, sms, resident)
+    check_views(results, gen, rnd)
+    for name, split in (("sc_message", False), ("sc_fused", True)):
+        blocks = resident[name][split][256]  # the large rounds' instance
+        results[name].update(resident_blocks_per_sm_256=blocks,
+                             resident_warps_per_sm=blocks * 256 // 32)
 
+    shapes = {}
     for name in SC_KERNELS:
         res = results[name]
-        for n in (1 << 14, 1 << 20, 1 << 22):
+        for n in SC_SIZES:
             f, g, t, twist, r = inputs[n]
             rt, tw2 = r * twist % R, twist * twist % R
             kern = {"sc_message": lambda: sck.message(f, g, t, twist),
@@ -962,6 +1109,10 @@ def phase_sumcheck_kernels(results):
                     "sc_fold": lambda: sck.fold(f, g, r, rt)}[name]
             ms = event_ms(kern, 100 if n < 1 << 20 else 20,
                           spin_cycles=40_000_000)
+            if name != "sc_fold":
+                pairs = n // (2 if name == "sc_message" else 4)
+                shapes.setdefault(name, {})[f"2^{n.bit_length() - 1}"] = \
+                    sck._shape(f.device, name, pairs)
             if n == 1 << 20:
                 plain = {"sc_message": lambda: sc._round_message_plain(f, g, t, twist),
                          "sc_fused": lambda: sc._fused_round_plain(f, g, t, r, rt, tw2),
@@ -972,14 +1123,22 @@ def phase_sumcheck_kernels(results):
                            lanes=n, source=SC_SOURCE)
             else:
                 res[f"ms_2^{n.bit_length() - 1}"] = ms
-                res[f"bound_ms_2^{n.bit_length() - 1}"] = max(
+                res[f"bound_ms_2^{n.bit_length() - 1}"] = bound_n = max(
                     n * SC_BYTES_PER_LANE[name] / HBM_BYTES_PER_S,
                     n * SC_PRODUCTS_PER_LANE[name] * FR_PRODUCT_IMADS / IMAD_PER_S) * 1e3
+                res[f"bound_share_2^{n.bit_length() - 1}"] = bound_n / ms
         bound = max(res["bytes"] / HBM_BYTES_PER_S, res["imads"] / IMAD_PER_S) * 1e3
         log(f"kernel {name}: {res['ms_2^14']:.4f} ms at 2^14 lanes, "
             f"{res['ms']:.4f} ms at 2^20 (bound {bound:.4f} ms, "
             f"{bound / res['ms']:.1%} of it; plain {res['plain_ms']:.2f} ms), "
-            f"{res['ms_2^22']:.4f} ms at 2^22 (bound {res['bound_ms_2^22']:.4f} ms)")
+            f"{res['ms_2^22']:.4f} ms at 2^22 (bound {res['bound_ms_2^22']:.4f} ms, "
+            f"{res['bound_ms_2^22'] / res['ms_2^22']:.1%} of it)")
+    split_or_pair = time_message_split_and_pair(inputs)
+    log(json.dumps({"round_kernel_times": {
+        name: {"ms": {k[3:]: v for k, v in results[name].items()
+                      if k.startswith("ms_2^")} | {"2^20": results[name]["ms"]},
+               "launch_shapes": shapes.get(name)} for name in SC_KERNELS},
+        "sc_message_pair_vs_split_ms": split_or_pair}))
 
     # A full 2^20 sumcheck through round_arrays against the plain prover.
     n = 1 << 20
@@ -2042,7 +2201,8 @@ def phase_examples(card):
 OWN_KERNELS = {"padd01_kernel": "padd01", "padd_kernel": "padd",
                "mont_mul_kernel": "mont_mul", "add_kernel": "add",
                "dbl_kernel": "dbl", "sc_message_kernel": "sc_message",
-               "sc_fused_kernel": "sc_fused", "sc_fold_kernel": "sc_fold"}
+               "sc_message_split_kernel": "sc_message",
+               "sc_fused_split_kernel": "sc_fused", "sc_fold_kernel": "sc_fold"}
 ALL_KERNELS = {**OWN_KERNELS, "vpu_chain_kernel": "vpu_chain",
                "copy_add_kernel": "copy_add"}
 
@@ -2176,6 +2336,12 @@ def phase_profile(results, msm_in, r1cs, ck):
                         for k, v in lanes.items() if "ms" in results.get(k, {})})
         out[label] = prof
     log(json.dumps({"profile": out}))
+    prove = out["prove_2^18"]
+    log(json.dumps({"round_kernels_prove_2^18": {
+        name: {"device_ms": prove.get("kernel_ms", {}).get(name),
+               "launches": prove.get("kernel_launches", {}).get(name),
+               "first_design_device_ms": ms0, "first_design_launches": n0}
+        for name, (ms0, n0) in SC_PROVE_FIRST_DESIGN.items()}}))
 
 
 def needs_dbl_lanes(p, q):
@@ -2288,7 +2454,7 @@ def kernel_rows(results, rates, usage):
                 r["lanes"] * ADD_WORD_PRODUCTS_23MM * 2 / IMAD_PER_S * 1e3)
         for key, v in r.items():
             if key.startswith(("ms_", "lanes_per", "psnark_", "elastic_", "float32",
-                               "glv_", "mesh_",
+                               "glv_", "mesh_", "resident_",
                                "device_ms", "library_device", "library_ms_", "bound_ms_",
                                "bound_rate", "bound_share_", "library_bound_share_")):
                 rows[-1][key] = v
@@ -2321,7 +2487,7 @@ def main() -> int:
     phase("2 kernels", phase_kernels, results)
     rates = phase("2b probes", phase_probes, results)
     phase("2c group API", phase_group_api, results)
-    phase("2d sumcheck kernels", phase_sumcheck_kernels, results)
+    phase("2d sumcheck kernels", phase_sumcheck_kernels, results, usage)
     msm_in, msm_out = phase("3 MSM", phase_msm)
     phase("4 golden", phase_golden)
     r1cs, ck, proof_18 = phase("5 projective 2^18", phase_full, results, False)

@@ -15,7 +15,9 @@ These are what the reference feeds the transcript via
 
 Proof (de)serialization for both SNARKs is at the end.  Unlike
 gemini_tpu's copy, `g1_from_compressed` refuses a point that is on the
-curve but outside the order-r subgroup.
+curve but outside the order-r subgroup, and `g1_from_uncompressed`
+refuses a malformed encoding, a point off the curve and one outside the
+subgroup.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 from .hostcurve import g1_mul, g1_neg
-from .params import Q, R
+from .params import B_G1, Q, R
 from .refimpl.fields import Fq2
 
 _INF_FLAG = 1 << 6
@@ -63,13 +65,31 @@ def g1_uncompressed(p: Optional[Tuple[int, int]]) -> bytes:
 
 
 def g1_from_uncompressed(b: bytes) -> Optional[Tuple[int, int]]:
-    assert len(b) == 96
-    ybytes = bytearray(b[48:])
-    flags = ybytes[-1] & 0xC0
-    ybytes[-1] &= 0x3F
+    """The point g1_uncompressed encodes.  Raises DeserializationError
+    on a length other than 96, the sign flag (which only the compressed
+    encoding carries), a nonzero coordinate under the infinity flag, a
+    coordinate >= q, a point off y^2 = x^3 + 4, or one outside the
+    order-r subgroup."""
+    if len(b) != 96:
+        raise DeserializationError("uncompressed G1 must be 96 bytes")
+    xb, yb = b[:48], bytearray(b[48:])
+    flags = yb[-1] & 0xC0
+    yb[-1] &= 0x3F
+    if flags & _NEG_FLAG:
+        raise DeserializationError("sign flag on an uncompressed G1 point")
     if flags & _INF_FLAG:
+        if any(xb) or any(yb):
+            raise DeserializationError("nonzero coordinates with infinity flag")
         return None
-    return (fq_from_bytes(b[:48]), fq_from_bytes(bytes(ybytes)))
+    try:
+        x, y = fq_from_bytes(xb), fq_from_bytes(bytes(yb))
+    except ValueError as e:
+        raise DeserializationError(str(e))
+    if (y * y - x * x * x - B_G1) % Q:
+        raise DeserializationError("point not on the curve")
+    if not _in_subgroup((x, y)):
+        raise DeserializationError("point not in the order-r subgroup")
+    return (x, y)
 
 
 def g1_compressed(p: Optional[Tuple[int, int]]) -> bytes:

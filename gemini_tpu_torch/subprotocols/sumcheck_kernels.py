@@ -24,6 +24,13 @@ returns it.  The launches on one device share a scratch buffer and a
 ticket that the last block resets, so they must run in stream order:
 every launch goes on the current stream.
 
+A message or fused launch takes the shape `launch_shape` picks: a
+pair to two lanes in every fused round and in a small message round, a
+pair to a lane in a larger message round; 128-thread blocks, one unit a
+thread, while they fit one per SM, else 256-thread blocks and never
+more than the card holds at once (the SM count and the occupancy API's
+resident blocks per SM, read once per device).
+
 `LAUNCHES` counts kernel launches and `LANES` the input lanes they
 covered (the plain path counts neither).
 """
@@ -43,9 +50,14 @@ MSG_LIMBS = L + 2
 LAUNCHES = {"sc_message": 0, "sc_fused": 0, "sc_fold": 0}
 LANES = dict.fromkeys(LAUNCHES, 0)
 
-_MAX_PAIRS = 1 << 31  # u64 word sums and 18 limbs hold the exact sum below this
+SMALL_THREADS, LARGE_THREADS = 128, 256  # a block of a small round, of a large one
+
+_MAX_PAIRS = 1 << 31  # 288-bit sums and 18 limbs hold the exact sum below this
+_MAX_BLOCKS = 4096  # csrc/sumcheck_kernels.cu kMaxBlocks
+_KERNEL_ID = {"sc_message": 0, "sc_fused": 1}
 _Desc = ctypes.c_longlong * 9  # f, g, t x (pointer, limb stride, lane stride)
-_scratch: dict = {}  # device -> (u64 partials, u32 ticket)
+_scratch: dict = {}  # device -> (u32 partials, u32 ticket)
+_shapes: dict = {}  # device -> (SM count, {kernel: {split: {threads: blocks per SM}}})
 
 
 def reset_launches() -> None:
@@ -55,12 +67,14 @@ def reset_launches() -> None:
 
 
 def _bind(lib):
-    p, n = ctypes.c_void_p, ctypes.c_longlong
+    p, n, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.sc_max_partials.argtypes = []
-    lib.sc_message.argtypes = [p, p, n, p, p, n, p, p]
-    lib.sc_fused.argtypes = [p, p, n, p, p, p, p, n, p, p]
+    lib.sc_occupancy.argtypes = [i, i, i, i, p, p, p]
+    lib.sc_message.argtypes = [p, p, n, i, i, i, p, p, n, p, p]
+    lib.sc_fused.argtypes = [p, p, n, i, i, p, p, p, p, n, p, p]
     lib.sc_fold.argtypes = [p, p, n, p, p, p]
-    for fn in (lib.sc_max_partials, lib.sc_message, lib.sc_fused, lib.sc_fold):
+    for fn in (lib.sc_max_partials, lib.sc_occupancy, lib.sc_message, lib.sc_fused,
+               lib.sc_fold):
         fn.restype = ctypes.c_int
 
 
@@ -112,10 +126,67 @@ def _desc(f, g, t):
 def _scratch_for(dev, lib):
     s = _scratch.get(dev)
     if s is None:
-        s = (torch.empty(lib.sc_max_partials(), dtype=torch.int64, device=dev),
+        s = (torch.empty(lib.sc_max_partials(), dtype=I32, device=dev),
              torch.zeros(1, dtype=I32, device=dev))
         _scratch[dev] = s
     return s
+
+
+def occupancy(name: str, vec: bool, split: bool, threads: int, device=None) -> dict:
+    """Round kernel `name` (sc_message or sc_fused), the instance with
+    vector loads or scalar ones, a pair to a lane or to two: resident
+    blocks per SM at `threads` a block (the occupancy API), registers and
+    local (spill) bytes per thread, on `device` (default the current
+    card)."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None \
+        else torch.device(device)
+    lib = _lib()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(dev):
+        err = lib.sc_occupancy(_KERNEL_ID[name], int(vec), int(split), threads,
+                               *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"{name}: occupancy query failed (cudaError {err})")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes"),
+                    (v.value for v in vals)))
+
+
+def launch_shape(name: str, pairs: int, sms: int, resident: dict) -> tuple:
+    """(split, threads, blocks) of a launch of round kernel `name` over
+    `pairs` pairs on a card of `sms` SMs, where resident[split][threads]
+    is the kernel's resident blocks per SM.  The fused round always gives
+    a pair to two lanes; the message does while those lanes fit one
+    128-thread block per SM (a small round, whose chain of products then
+    halves), else one lane a pair.  Up to one 128-thread block per SM
+    (one warp a scheduler: the latency of one unit) the launch takes
+    128-thread blocks, one unit a thread; beyond, 256-thread blocks, and
+    no more than the card holds at once (the kernels walk the units in a
+    grid-stride loop)."""
+    split = name == "sc_fused" or 2 * pairs <= SMALL_THREADS * sms
+    return (split, *unit_grid(2 * pairs if split else pairs, sms, resident[split]))
+
+
+def unit_grid(units: int, sms: int, resident: dict) -> tuple:
+    """(threads, blocks) for `units` units of one thread each, with
+    resident[threads] blocks per SM (launch_shape's rule)."""
+    threads = SMALL_THREADS if units <= SMALL_THREADS * sms else LARGE_THREADS
+    blocks = min(-(-units // threads), resident[threads] * sms, _MAX_BLOCKS)
+    return threads, max(1, blocks)
+
+
+def _shape(dev, name: str, pairs: int) -> tuple:
+    """launch_shape on `dev`, its SM count and resident blocks read once
+    (the fewer of each kernel's two load instances)."""
+    s = _shapes.get(dev)
+    if s is None:
+        resident = {k: {sp: {t: min(occupancy(k, v, sp, t, dev)["blocks_per_sm"]
+                                    for v in (False, True))
+                             for t in (SMALL_THREADS, LARGE_THREADS)}
+                        for sp in (False, True)} for k in _KERNEL_ID}
+        s = _shapes[dev] = (torch.cuda.get_device_properties(dev).multi_processor_count,
+                            resident)
+    sms, resident = s
+    return launch_shape(name, pairs, sms, resident[name])
 
 
 def _run(name, dev, fn, *args):
@@ -137,7 +208,8 @@ def message(f, g, t, twist: int) -> torch.Tensor:
     partials, ticket = _scratch_for(dev, lib)
     out = torch.empty((2, MSG_LIMBS), dtype=I32, device=dev)
     _run("sc_message", dev, lib.sc_message, _desc(f, g, t), _words(twist), pairs,
-         out.data_ptr(), partials.data_ptr(), partials.numel(), ticket.data_ptr())
+         *_shape(dev, "sc_message", pairs), out.data_ptr(), partials.data_ptr(),
+         partials.numel(), ticket.data_ptr())
     LAUNCHES["sc_message"] += 1
     LANES["sc_message"] += n
     return out
@@ -159,8 +231,9 @@ def fused_round(f, g, t, r: int, r_twist: int, twist_next: int):
     g2 = torch.empty((L, n // 2), dtype=I32, device=dev)
     out = torch.empty((2, MSG_LIMBS), dtype=I32, device=dev)
     _run("sc_fused", dev, lib.sc_fused, _desc(f, g, t),
-         _words(r, r_twist, twist_next), pairs, f2.data_ptr(), g2.data_ptr(),
-         out.data_ptr(), partials.data_ptr(), partials.numel(), ticket.data_ptr())
+         _words(r, r_twist, twist_next), pairs, *_shape(dev, "sc_fused", pairs)[1:],
+         f2.data_ptr(), g2.data_ptr(), out.data_ptr(), partials.data_ptr(),
+         partials.numel(), ticket.data_ptr())
     LAUNCHES["sc_fused"] += 1
     LANES["sc_fused"] += n
     return f2, g2, t[:, 0::2], out
