@@ -47,7 +47,22 @@ native host library from the sources in the checkout, then, in order:
      {"round_kernel_times": ...} line with the launch shapes); proves a
      2^20 sumcheck through round_arrays and holds it against the plain
      prover (messages, challenges, final foldings; 1 message launch, 19
-     fused rounds, 1 fold, 20 readbacks);
+     fused rounds, 1 fold, 20 readbacks); the plain versions run with
+     fields/fp.py's Fr ops on their plain versions too (plain_fr), so the
+     reference is plain PyTorch throughout;
+  2e. holds the Fr field kernels (fr_mul, fr_addsub, fr_reduce,
+     fr_lane_sum: csrc/fr_kernels.cu) against fields/fp.py's plain
+     versions bit for bit: at 2^0, 2^4, 2^10, 2^14, 2^20 and 2^22 lanes
+     (a of any 256-bit value, b canonical; mul, add, sub, neg, the lane
+     sum with and without b at G = 1), on edge values (0, 1, r - 1,
+     r - 2, the Montgomery one, from_mont's plain one, the largest sums
+     at 2^14 and 2^22), on a (16, 1) scalar, halves, even/odd views and
+     lane blocks at offsets 1 and 3, at _fold_block's (G, m) shapes of a
+     2^20 block against (16, 1, m) weights, and fr_reduce at E = 16-21
+     (every row at 2^47 - 1, random rows, V = 0 and V = r, int32 rows, a
+     strided view) and at E = 16 on every size; times each at 2^20 and
+     2^14 lanes beside its bound and its plain version (one
+     {"fr_kernel_times": ...} line);
   3. runs the kernel MSM pipeline at 2^16 against the host Pippenger and
      times it at 2^20 on bench.py's inputs, in the projective and in the
      Jacobian configuration (GEMINI_TPU_PROJ=0);
@@ -142,7 +157,11 @@ native host library from the sources in the checkout, then, in order:
      (the port's own and the ten largest others), the PyTorch copy
      kernels' device ms, and the lanes each group-law kernel took; then
      the prove's sc_fused and sc_message device ms and launches beside
-     the first design's (one {"round_kernels_prove_2^18": ...} line);
+     the first design's (one {"round_kernels_prove_2^18": ...} line),
+     and the prove's plain int64 chains by kernel name (int64 adds,
+     binary ops, `or` reductions, DtoH copies), device events, busy
+     share and Fr kernel ms beside the prove's with plain Fr ops (one
+     {"plain_chains_prove_2^18": ...} line);
   6b. counts, untimed, the add lanes and warps that need the doubling in
      one more Jacobian MSM at 2^20 and one more Jacobian 2^18 prove;
   7. prints the total seconds, the kernel table as one JSON line
@@ -151,10 +170,14 @@ native host library from the sources in the checkout, then, in order:
      phase prints its seconds and the host RSS at its start and end.
 
 Each kernel's launch count is read from its own path, with every count
-set to 0 just before the path runs: padd, padd01, mont_mul and the
-round kernels from the projective prove (5), add from the Jacobian
-prove (5b), dbl from the group API (2c), vpu_chain from vpubench,
-copy_add from mmbench (2b).
+set to 0 just before the path runs: padd, padd01, mont_mul, the round
+kernels and the Fr kernels from the projective prove (5), add from the
+Jacobian prove (5b), dbl from the group API (2c), vpu_chain from
+vpubench, copy_add from mmbench (2b).  Every prove (5-5g) must run its
+Fr ops on the Fr kernels: each of the four launches (the examples:
+fr_mul) and `_carry` runs on no CUDA tensor of Fr (fields/fp.py
+CUDA_CARRIES; the Fq count, the MSM's plain additive Fq ops, is
+printed).
 The pSNARK prove's (5c) padd, padd01 and mont_mul launches are the
 table's `psnark_launches`, the 2^24 elastic prove's (5d) its
 `elastic_launches`, the 2^20 elastic pSNARK prove's (5e) its
@@ -203,11 +226,14 @@ G1_SOURCE = "gemini_tpu_torch/csrc/g1_kernels.cu"
 PROBE_SOURCE = "gemini_tpu_torch/csrc/probes.cu"
 SC_SOURCE = "gemini_tpu_torch/csrc/sumcheck_kernels.cu"
 SC_KERNELS = ("sc_message", "sc_fused", "sc_fold")
+FR_SOURCE = "gemini_tpu_torch/csrc/fr_kernels.cu"
+FR_KERNELS = ("fr_mul", "fr_addsub", "fr_reduce", "fr_lane_sum")
 KERNELS = ("padd", "padd01", "mont_mul", "add", "dbl", "vpu_chain", "copy_add",
-           *SC_KERNELS)
+           *SC_KERNELS, *FR_KERNELS)
 SOURCES = {k: G1_SOURCE for k in KERNELS[:5]}
 SOURCES.update(vpu_chain=PROBE_SOURCE, copy_add=PROBE_SOURCE,
-               **dict.fromkeys(SC_KERNELS, SC_SOURCE))
+               **dict.fromkeys(SC_KERNELS, SC_SOURCE),
+               **dict.fromkeys(FR_KERNELS, FR_SOURCE))
 # The sumcheck round kernels at n lanes of f and g (64 bytes per (16,)
 # int32 element): Fr products per lane and bytes moved per lane (message:
 # f, g and n/2 twist powers read; fused: f, g and n/4 powers read, f2
@@ -228,6 +254,10 @@ REPLACES = {
     "sc_message": "gemini_tpu/subprotocols/sumcheck.py:78",
     "sc_fused": "gemini_tpu/subprotocols/sumcheck.py:117",
     "sc_fold": "gemini_tpu/subprotocols/sumcheck.py:187",
+    "fr_mul": "gemini_tpu/fields/fp.py:273",
+    "fr_addsub": "gemini_tpu/fields/fp.py:199, :206",
+    "fr_reduce": "gemini_tpu/fields/fp.py:327",
+    "fr_lane_sum": "gemini_tpu/fields/fp.py:412",
 }
 
 
@@ -859,6 +889,27 @@ def plain_round():
         sc._round_message_kernel, sc._fold_kernel, sc._fused_round = saved
 
 
+@contextlib.contextmanager
+def plain_fr():
+    """fields/fp.py's Fr ops on their plain versions whatever the tensor's
+    device (fp._fr_kernel answers no): the plain PyTorch reference of the
+    round kernels (2d), whose plain versions call fp.  Fq keeps its own
+    dispatch."""
+    from gemini_tpu_torch.fields import fp
+
+    saved = fp._fr_kernel
+    fp._fr_kernel = lambda spec, a: False
+    try:
+        yield
+    finally:
+        fp._fr_kernel = saved
+
+
+def on_plain_fr(fn):
+    with plain_fr():
+        return fn()
+
+
 def sc_launches():
     from gemini_tpu_torch.subprotocols import sumcheck_kernels as sck
 
@@ -892,7 +943,8 @@ def check_round_kernels(results, f, g, t, twist, r, what):
         cases.append(("sc_fused", lambda: sck.fused_round(f, g, t, r, rt, tw2),
                       lambda: sc._fused_round_plain(f, g, t, r, rt, tw2)))
     for name, kern, plain in cases:
-        err = compare(name, kern(), plain(), what)
+        want = on_plain_fr(plain)
+        err = compare(name, kern(), want, what)
         res = results.setdefault(name, {"max_abs_err": 0, "bit_exact": True})
         res["max_abs_err"] = max(res["max_abs_err"], err)
 
@@ -1117,7 +1169,8 @@ def phase_sumcheck_kernels(results, usage=None):
                 plain = {"sc_message": lambda: sc._round_message_plain(f, g, t, twist),
                          "sc_fused": lambda: sc._fused_round_plain(f, g, t, r, rt, tw2),
                          "sc_fold": lambda: sc._fold_plain(f, g, t, r, rt)}[name]
-                res.update(ms=ms, plain_ms=plain_ms(plain), library_ms=None,
+                res.update(ms=ms, plain_ms=plain_ms(lambda: on_plain_fr(plain)),
+                           library_ms=None,
                            bytes=n * SC_BYTES_PER_LANE[name],
                            imads=int(n * SC_PRODUCTS_PER_LANE[name] * FR_PRODUCT_IMADS),
                            lanes=n, source=SC_SOURCE)
@@ -1150,7 +1203,7 @@ def phase_sumcheck_kernels(results, usage=None):
     torch.cuda.synchronize()
     kern_s = time.time() - t0
     launches, readbacks = sc_launches(), sc.READBACKS["round_messages"]
-    with plain_round():
+    with plain_round(), plain_fr():
         t0 = time.time()
         plain = sc.Sumcheck.prove(GeminiTranscript(b"S"), sc.TimeProver(f, g, twist))
         torch.cuda.synchronize()
@@ -1165,6 +1218,261 @@ def phase_sumcheck_kernels(results, usage=None):
     log(json.dumps({"sumcheck_2^20": {
         "equal_to_plain": True, "kernel_s": kern_s, "plain_s": plain_s,
         "launches": launches, "readbacks": readbacks}}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 2e: the Fr field kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+FR_SIZES = (1, 1 << 4, 1 << 10, 1 << 14, 1 << 20, 1 << 22)
+# _fold_block's (groups, m) at a 2^20 block: round j of a streamed
+# sumcheck folds m = 2^j base lanes a group.
+FOLD_SHAPES = ((1 << 20, 1), (1 << 19, 2), (1 << 16, 16), (1 << 14, 64),
+               (1 << 10, 1 << 10), (1 << 4, 1 << 16), (2, 1 << 19), (1, 1 << 20))
+REDUCE_ROWS = (16, 17, 18, 19, 20, 21)
+# Bytes and 32-bit IMADs per lane of each Fr kernel as phase 2e times it at
+# n lanes (64 bytes per (16,) int32 element; a row of int64 8 bytes): mul
+# reads a and b and writes the product, one 8-word CIOS product (2 x 64
+# word products, two IMADs each); addsub the same bytes; reduce reads 18
+# int64 rows and writes one element, a CIOS over reduce_words(18) = 10
+# words (2 x 8 word products a word); lane_sum reads one element a term
+# (with b: two and a product) and writes 18 limbs a group.
+FR_REDUCE_TIMED_ROWS = 18
+
+
+def fr_bytes_imads(name, n, groups=1, with_b=False):
+    from gemini_tpu_torch.fields import fr_kernels as frk
+
+    if name in ("fr_mul", "fr_addsub"):
+        return 192 * n, FR_PRODUCT_IMADS * n if name == "fr_mul" else 0
+    if name == "fr_reduce":
+        rows = FR_REDUCE_TIMED_ROWS
+        return (8 * rows + 64) * n, 2 * 2 * 8 * frk.reduce_words(rows) * n
+    return ((128 if with_b else 64) * n + 72 * groups,
+            FR_PRODUCT_IMADS * n if with_b else 0)
+
+
+def fr_bound_ms(name, n, groups=1, with_b=False):
+    nbytes, imads = fr_bytes_imads(name, n, groups, with_b)
+    return max(nbytes / HBM_BYTES_PER_S, imads / IMAD_PER_S) * 1e3
+
+
+def any_256(gen, m, *batch):
+    """(16, *batch, m) int32 16-bit limbs of any 256-bit values."""
+    import torch
+
+    return torch.randint(0, 1 << 16, (16, *batch, m), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def check_fr(results, name, kern, plain, what):
+    """One Fr kernel call against its plain version (fp's `_*_plain`),
+    bit for bit."""
+    err = compare(name, (kern(),), (plain(),), what)
+    res = results.setdefault(name, {"max_abs_err": 0, "bit_exact": True})
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+
+
+def check_fr_pair(results, a, b, what):
+    """mul, add, sub and neg (sub from a broadcast zero) of a and b, and the
+    lane sum of a and of a * b over the last axis, against the plain
+    versions."""
+    from gemini_tpu_torch.fields import fp
+    from gemini_tpu_torch.fields import fr_kernels as frk
+    from gemini_tpu_torch.fields.fp import FR
+
+    axis = a.ndim - 1 if a.ndim >= b.ndim else b.ndim - 1
+    check_fr(results, "fr_mul", lambda: frk.mul(a, b),
+             lambda: fp._mont_mul_plain(FR, a, b), what)
+    check_fr(results, "fr_addsub", lambda: frk.addsub(a, b, False),
+             lambda: fp._add_plain(FR, a, b), f"{what} (add)")
+    check_fr(results, "fr_addsub", lambda: frk.addsub(a, b, True),
+             lambda: fp._sub_plain(FR, a, b), f"{what} (sub)")
+    check_fr(results, "fr_addsub", lambda: fp.neg(FR, b),
+             lambda: fp._sub_plain(FR, b.new_zeros(b.shape), b), f"{what} (neg)")
+    check_fr(results, "fr_lane_sum", lambda: frk.lane_sum(a, axis),
+             lambda: fp._lane_sum_plain(FR, a, axis), f"{what} (sum of a)")
+    check_fr(results, "fr_lane_sum", lambda: frk.lane_sum(a, axis, b),
+             lambda: fp._lane_sum_plain(FR, fp._mont_mul_plain(FR, a, b), axis),
+             f"{what} (sum of a * b)")
+
+
+def reduce_rows(gen, rows, n, top=1 << 47):
+    import torch
+
+    return torch.randint(0, top, (rows, n), generator=gen, device="cuda",
+                         dtype=torch.int64)
+
+
+def phase_fr_kernels(results):
+    """2e: the Fr kernels (fr_mul, fr_addsub, fr_reduce, fr_lane_sum:
+    csrc/fr_kernels.cu) against fields/fp.py's plain versions, bit for
+    bit: a of any 256-bit value and canonical b at 2^0, 2^4, 2^10, 2^14,
+    2^20 and 2^22 lanes (the lane sums at G = 1, with and without b);
+    edge values (0, 1, r - 1, r - 2, the Montgomery one and from_mont's
+    plain one, the largest sums) at 2^10 lanes; a (16, 1) scalar, halves,
+    even/odd views and lane blocks at offsets 1 and 3 of a wider tensor;
+    _fold_block's grouped shapes (a 2^20 block as G x m, m = 1 ... 2^20,
+    against (16, 1, m) weights) with and without b; fr_reduce at E =
+    16-21 with every row at 2^47 - 1, with random rows below 2^47, V = 0
+    and V = r, on int64 and int32 rows and a strided view.  Then each
+    kernel timed at 2^20 and 2^14 lanes (guarded events) beside its bound
+    and its plain version (host clock, at 2^20), fr_lane_sum also with b
+    and at the grouped shapes; prints one {"fr_kernel_times": ...} line."""
+    import torch
+
+    from gemini_tpu_torch.benches.timing import event_ms
+    from gemini_tpu_torch.fields import fp
+    from gemini_tpu_torch.fields import fr_kernels as frk
+    from gemini_tpu_torch.fields.fp import FR
+    from gemini_tpu_torch.params import R
+
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    inputs = {}
+    for n in FR_SIZES:
+        a, b = any_256(gen, n), fr_random(gen, n)
+        check_fr_pair(results, a, b, f"{n} lanes")
+        inputs[n] = (a, b)
+    log("Fr kernels: bit-exact against plain at 2^0, 2^4, 2^10, 2^14, 2^20 and "
+        "2^22 lanes (mul, add, sub, neg, lane sums with and without b)")
+
+    def const(v, n, mont=True):
+        return FR.tensor([v], "cuda", mont=mont).expand(16, n).contiguous()
+
+    n = 1 << 10
+    edge_vals = [(0, True), (1, True), (R - 1, False), (R - 2, False), (1, False),
+                 (R - 1, True)]
+    edges = torch.cat([const(v, n // 8, m) for v, m in edge_vals]
+                      + [fr_random(gen, n - 6 * (n // 8))], dim=1)
+    rolled = edges.roll(n // 8, dims=1)
+    for label, a, b in (("edge values", edges, edges), ("edges x rolled", edges, rolled),
+                        ("r - 1 x edges", const(R - 1, n, False), edges)):
+        check_fr_pair(results, a, b, f"2^10 lanes, {label}")
+    one = torch.zeros((16, 1), dtype=torch.int32, device="cuda")
+    one[0] = 1  # from_mont's plain one, broadcast
+    check_fr(results, "fr_mul", lambda: fp.from_mont(FR, inputs[n][0]),
+             lambda: fp._mont_mul_plain(FR, inputs[n][0], one), "from_mont at 2^10")
+    for big in (1 << 14, 1 << 22):
+        rmax = const(R - 1, big, False)
+        check_fr(results, "fr_lane_sum", lambda: frk.lane_sum(rmax),
+                 lambda: fp._lane_sum_plain(FR, rmax, 1), f"largest sums, {big} lanes")
+    got = frk.lane_sum(const(R - 1, 1 << 22, False)).cpu().numpy().astype(object)
+    if sum(int(x) << (16 * i) for i, x in enumerate(got)) != (1 << 22) * (R - 1):
+        raise AssertionError("fr_lane_sum: the 2^22-lane largest sum is not 2^22 (r - 1)")
+
+    n = 1 << 14
+    a, b = inputs[n]
+    wide, canon = any_256(gen, 2 * n + 5), fr_random(gen, 2 * n + 5)
+    scalar = fr_random(gen, 1)
+    views = [("a (16, 1) scalar", a, scalar), ("scalar first", scalar.expand(16, n), b),
+             ("halves", wide[:, :n], canon[:, n:2 * n]),
+             ("even/odd", wide[:, 0:2 * n:2], canon[:, 1:2 * n:2]),
+             ("offsets 1 and 3", wide[:, 1:n + 1], canon[:, 3:n + 3])]
+    for label, x, y in views:
+        check_fr_pair(results, x, y, f"2^14 lanes, {label}")
+    log("Fr kernels: bit-exact on edge values, from_mont, the largest sums and "
+        "broadcast, half, even/odd and offset views")
+
+    block = any_256(gen, 1 << 20)
+    for groups, m in FOLD_SHAPES:
+        grouped = block.reshape(16, groups, m)
+        w = fr_random(gen, m).reshape(16, 1, m)
+        check_fr(results, "fr_lane_sum", lambda: frk.lane_sum(grouped, 2),
+                 lambda: fp._lane_sum_plain(FR, grouped, 2), f"({groups}, {m})")
+        check_fr(results, "fr_lane_sum", lambda: frk.lane_sum(grouped, 2, w),
+                 lambda: fp._lane_sum_plain(FR, fp._mont_mul_plain(FR, grouped, w), 2),
+                 f"({groups}, {m}) with (16, 1, {m}) weights")
+        check_fr(results, "fr_mul", lambda: frk.mul(grouped, w),
+                 lambda: fp._mont_mul_plain(FR, grouped, w), f"({groups}, {m}) weights")
+    log(f"Fr kernels: bit-exact at _fold_block's shapes {FOLD_SHAPES}")
+
+    for rows in REDUCE_ROWS:
+        n = 1 << 10
+        top = torch.full((rows, n // 4), (1 << 47) - 1, dtype=torch.int64, device="cuda")
+        zero = torch.zeros((rows, 4), dtype=torch.int64, device="cuda")
+        r_rows = zero.clone()
+        r_rows[:16] = torch.tensor([(R >> (16 * k)) & 0xFFFF for k in range(16)],
+                                   device="cuda")[:, None]
+        v = torch.cat([top, zero, r_rows, reduce_rows(gen, rows, n)], dim=1)
+        check_fr(results, "fr_reduce", lambda: frk.reduce(v),
+                 lambda: fp._reduce_relaxed_plain(FR, v), f"E = {rows}, edge rows")
+        want = [sum(int(x) << (16 * k) for k, x in enumerate(col)) % R
+                for col in v[:, n // 4 - 1:n // 4 + 8].T.cpu().tolist()]
+        if FR.decode(frk.reduce(v)[:, n // 4 - 1:n // 4 + 8], mont=False) != want:
+            raise AssertionError(f"fr_reduce at E = {rows}: not V mod r")
+        v32 = reduce_rows(gen, rows, n, 1 << 16).to(torch.int32)
+        check_fr(results, "fr_reduce", lambda: frk.reduce(v32),
+                 lambda: fp._reduce_relaxed_plain(FR, v32), f"E = {rows}, int32 rows")
+    for n in FR_SIZES:
+        v = reduce_rows(gen, 16, n)
+        check_fr(results, "fr_reduce", lambda: frk.reduce(v),
+                 lambda: fp._reduce_relaxed_plain(FR, v), f"E = 16, {n} lanes")
+    vs = reduce_rows(gen, 18, 3 * (1 << 14))[:, 1::3]
+    check_fr(results, "fr_reduce", lambda: frk.reduce(vs),
+             lambda: fp._reduce_relaxed_plain(FR, vs), "E = 18, lane stride 3")
+    log(f"Fr kernels: fr_reduce bit-exact at E = {REDUCE_ROWS} (rows at 2^47 - 1, "
+        "V = 0, V = r, int32 rows) and at E = 16 on every size")
+
+    times = {}
+    for name in FR_KERNELS:
+        res = results[name]
+        for n in (1 << 14, 1 << 20):
+            a, b = inputs[n] if n in inputs else (any_256(gen, n), fr_random(gen, n))
+            v = reduce_rows(gen, FR_REDUCE_TIMED_ROWS, n)
+            kern, plain = {
+                "fr_mul": (lambda: frk.mul(a, b), lambda: fp._mont_mul_plain(FR, a, b)),
+                "fr_addsub": (lambda: frk.addsub(a, b, False),
+                              lambda: fp._add_plain(FR, a, b)),
+                "fr_reduce": (lambda: frk.reduce(v),
+                              lambda: fp._reduce_relaxed_plain(FR, v)),
+                "fr_lane_sum": (lambda: frk.lane_sum(a),
+                                lambda: fp._lane_sum_plain(FR, a, 1))}[name]
+            ms = event_ms(kern, 100 if n < 1 << 20 else 20, spin_cycles=40_000_000)
+            if n == 1 << 20:
+                nbytes, imads = fr_bytes_imads(name, n)
+                res.update(ms=ms, plain_ms=plain_ms(plain), library_ms=None,
+                           bytes=nbytes, imads=imads, lanes=n, source=FR_SOURCE,
+                           bound_ms=fr_bound_ms(name, n))
+                res["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= \
+                    imads / IMAD_PER_S else "operations"
+            else:
+                res["ms_2^14"] = ms
+                res["bound_ms_2^14"] = fr_bound_ms(name, n)
+                res["bound_share_2^14"] = res["bound_ms_2^14"] / ms
+        times[name] = {"ms_2^20": res["ms"], "bound_ms_2^20": res["bound_ms"],
+                       "ms_2^14": res["ms_2^14"], "plain_ms_2^20": res["plain_ms"]}
+    res = results["fr_lane_sum"]
+    for n in (1 << 14, 1 << 20):
+        a, b = inputs[n]
+        key = f"2^{n.bit_length() - 1}"
+        res[f"ms_with_b_{key}"] = ms = event_ms(lambda: frk.lane_sum(a, 1, b),
+                                                100 if n < 1 << 20 else 20,
+                                                spin_cycles=40_000_000)
+        res[f"bound_ms_with_b_{key}"] = bound = fr_bound_ms("fr_lane_sum", n,
+                                                            with_b=True)
+        res[f"bound_share_with_b_{key}"] = bound / ms
+    fold = {}
+    for groups, m in FOLD_SHAPES:
+        grouped = block.reshape(16, groups, m)
+        w = fr_random(gen, m).reshape(16, 1, m)
+        ms = event_ms(lambda: frk.lane_sum(grouped, 2, w), 20, spin_cycles=40_000_000)
+        nbytes = 64 * (1 << 20) + 64 * m + 72 * groups  # weights read once
+        bound = max(nbytes / HBM_BYTES_PER_S,
+                    (1 << 20) * FR_PRODUCT_IMADS / IMAD_PER_S) * 1e3
+        fold[f"{groups}x{m}"] = {"ms": ms, "bound_ms": bound,
+                                 "shape": frk.lane_sum_shape(groups, m,
+                                                             frk._sm_count(block.device))}
+    res["ms_fold_2^20"] = {k: v["ms"] for k, v in fold.items()}
+    times["fr_lane_sum"].update({"with_b": {k: v for k, v in res.items()
+                                            if "with_b" in k}, "fold_2^20": fold})
+    for name in FR_KERNELS:
+        log(f"kernel {name}: {results[name]['ms_2^14']:.4f} ms at 2^14 lanes, "
+            f"{results[name]['ms']:.4f} ms at 2^20 (bound "
+            f"{results[name]['bound_ms']:.4f} ms, "
+            f"{results[name]['bound_ms'] / results[name]['ms']:.1%} of it; plain "
+            f"{results[name]['plain_ms']:.2f} ms)")
+    log(json.dumps({"fr_kernel_times": times}))
 
 
 # ---------------------------------------------------------------------------
@@ -1395,6 +1703,32 @@ def require_round_kernels(counts, what, fused=True):
                              f"round kernels: {counts}")
 
 
+def reset_fr() -> None:
+    """Fr kernel launches and the `_carry` calls on CUDA tensors set to 0."""
+    from gemini_tpu_torch.fields import fp
+    from gemini_tpu_torch.fields import fr_kernels as frk
+
+    frk.reset_launches()
+    for k in fp.CUDA_CARRIES:
+        fp.CUDA_CARRIES[k] = 0
+
+
+def require_fr_kernels(what, need=FR_KERNELS):
+    """The Fr ops of a run since reset_fr() went to the Fr kernels: each of
+    `need` launched, and `_carry` ran on no CUDA tensor of Fr.  Returns
+    {"fr_launches": ..., "fr_lanes": ..., "cuda_carries": ...} (the Fq
+    count is its plain additive ops on the card)."""
+    from gemini_tpu_torch.fields import fp
+    from gemini_tpu_torch.fields import fr_kernels as frk
+
+    launches, carries = dict(frk.LAUNCHES), dict(fp.CUDA_CARRIES)
+    if carries["Fr"] or not all(launches[k] for k in need):
+        raise AssertionError(f"{what} ran Fr ops off the Fr kernels: launches "
+                             f"{launches}, _carry calls on CUDA tensors {carries}")
+    return {"fr_launches": launches, "fr_lanes": dict(frk.LANES),
+            "cuda_carries": carries}
+
+
 @contextlib.contextmanager
 def counted_batches():
     """Records each Sumcheck.prove_batch inside the block: provers, rounds
@@ -1448,6 +1782,7 @@ def phase_full(results, jacobian: bool):
 
     gk.reset_launches()
     sck.reset_launches()
+    reset_fr()
     os.environ["GEMINI_TPU_TRACE"] = "1"
     with SpanTotals() as spans:
         t0 = time.time()
@@ -1459,6 +1794,7 @@ def phase_full(results, jacobian: bool):
     lanes = dict(gk.LANES)
     sc_l = sc_launches()
     require_round_kernels(sc_l, f"the 2^{logn} {config} prove")
+    fr = require_fr_kernels(f"the 2^{logn} {config} prove")
     sumcheck_ms = {"kernels": {k: v for k, v in spans.ms.items() if "sumcheck" in k}}
     if not jacobian:
         # The same prove with the plain round, then with the kernels again
@@ -1491,6 +1827,9 @@ def phase_full(results, jacobian: bool):
             results[name]["lanes_per_prove"] = lanes[name]
         for name in SC_KERNELS:
             results[name]["launches"] = sc_l[name]
+        for name in FR_KERNELS:
+            results[name]["launches"] = fr["fr_launches"][name]
+            results[name]["lanes_per_prove"] = fr["fr_lanes"][name]
 
     bad = copy.deepcopy(proof)
     bad.zc_alpha = (bad.zc_alpha + 1) % R
@@ -1504,8 +1843,8 @@ def phase_full(results, jacobian: bool):
                     "setup_s": setup_s, "prove_s": prove_s, "verify_s": verify_s,
                     "proof_bytes": len(snark_proof_bytes(proof)),
                     "setup_launches": setup_launches, "launches": launches,
-                    "lanes": lanes, "sc_launches": sc_l, "sumcheck_spans_ms": sumcheck_ms,
-                    "tampered_rejected": True}))
+                    "lanes": lanes, "sc_launches": sc_l, **fr,
+                    "sumcheck_spans_ms": sumcheck_ms, "tampered_rejected": True}))
     return r1cs, ck, snark_proof_bytes(proof)
 
 
@@ -1544,6 +1883,7 @@ def phase_psnark(results, card):
     torch.cuda.reset_peak_memory_stats()
     gk.reset_launches()
     sck.reset_launches()
+    reset_fr()
     with SpanTotals() as spans, counted_batches() as batches:
         t0 = time.time()
         proof = Proof.new_time(ck, r1cs, idx)
@@ -1558,8 +1898,11 @@ def phase_psnark(results, card):
         results[name]["psnark_launches"] = launches[name]
         results[name]["psnark_lanes"] = lanes[name]
     require_round_kernels(sc_l, f"the 2^{logn} pSNARK prove")
+    fr = require_fr_kernels(f"the 2^{logn} pSNARK prove")
     for name in SC_KERNELS:
         results[name]["psnark_launches"] = sc_l[name]
+    for name in FR_KERNELS:
+        results[name]["psnark_launches"] = fr["fr_launches"][name]
     # sumcheck 3: 13 TimeProvers, one readback per round that has messages
     third = batches[-1]
     if third["provers"] != 13 or third["readbacks"] != third["rounds"] - 1:
@@ -1593,7 +1936,7 @@ def phase_psnark(results, card):
         "spans_ms": {k: v for k, v in spans.ms.items() if k.startswith("psnark::")},
         "inner_spans_ms": {k: v for k, v in spans.ms.items()
                            if not k.startswith("psnark::")},
-        "launches": launches, "lanes": lanes, "sc_launches": sc_l,
+        "launches": launches, "lanes": lanes, "sc_launches": sc_l, **fr,
         "sumcheck_3": third,
         "max_memory_allocated_bytes": peak, "card": card}))
 
@@ -1636,6 +1979,7 @@ def phase_elastic(results, card):
     torch.cuda.reset_peak_memory_stats()
     gk.reset_launches()
     sck.reset_launches()
+    reset_fr()
     out["host_rss_before_trim_bytes"] = MemoryWatcher._rss()
     trim_host_heap()
     out["host_rss_before_prove_bytes"] = MemoryWatcher._rss()
@@ -1656,8 +2000,11 @@ def phase_elastic(results, card):
         results[name]["elastic_lanes"] = lanes[name]
     out["sc_launches"] = sc_launches()
     require_round_kernels(out["sc_launches"], f"the 2^{ELASTIC_LOGN} elastic prove")
+    out.update(require_fr_kernels(f"the 2^{ELASTIC_LOGN} elastic prove"))
     for name in SC_KERNELS:
         results[name]["elastic_launches"] = out["sc_launches"][name]
+    for name in FR_KERNELS:
+        results[name]["elastic_launches"] = out["fr_launches"][name]
     out["proof_bytes"] = len(snark_proof_bytes(proof))
 
     n = 1 << ELASTIC_CHECK_LOGN
@@ -1779,16 +2126,19 @@ def phase_psnark_elastic(results, card):
     gk.reset_launches()
     probes.reset_launches()
     sck.reset_launches()
+    reset_fr()
     with span_totals_with_peaks() as spans, \
             MemoryWatcher(interval=0.5, threshold_kib=1 << 22) as mem:
         t0 = time.time()
         proof = Proof.new_elastic(fake, stream, idx, block_size=block)
         torch.cuda.synchronize()
         out["prove_s"] = time.time() - t0
-    launches = {**gk.LAUNCHES, **probes.LAUNCHES, **sck.LAUNCHES}
-    lanes = {**gk.LANES, **sck.LANES}
     require_round_kernels(sc_launches(), f"the 2^{PSNARK_ELASTIC_LOGN} elastic "
                           "pSNARK prove")
+    fr = require_fr_kernels(f"the 2^{PSNARK_ELASTIC_LOGN} elastic pSNARK prove")
+    launches = {**gk.LAUNCHES, **probes.LAUNCHES, **sck.LAUNCHES, **fr["fr_launches"]}
+    lanes = {**gk.LANES, **sck.LANES, **fr["fr_lanes"]}
+    out["cuda_carries"] = fr["cuda_carries"]
     spans.peak["after the last span"] = torch.cuda.max_memory_allocated()
     stage = max(spans.peak, key=spans.peak.get)
     out.update(max_memory_allocated_bytes=spans.peak[stage],
@@ -2060,6 +2410,7 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
 
     gk.reset_launches()
     sck.reset_launches()
+    reset_fr()
     hostcurve.g1_msm_pippenger = counted
     try:
         proof = timed("snark_2^18_mesh_prove", lambda: Proof.new_time(r1cs, ck,
@@ -2070,8 +2421,11 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
     mesh_sc = sc_launches()
     # the sharded prover folds and sums each shard apart (no fused round)
     require_round_kernels(mesh_sc, "the 2^18 mesh prove", fused=False)
+    mesh_fr = require_fr_kernels("the 2^18 mesh prove")
     for name in SC_KERNELS:
         results[name]["mesh_launches"] = mesh_sc[name]
+    for name in FR_KERNELS:
+        results[name]["mesh_launches"] = mesh_fr["fr_launches"][name]
     if snark_proof_bytes(proof) != proof_18:
         raise AssertionError("the 2^18 SNARK with mesh= differs from phase 5's proof")
     proof.verify(r1cs, VerifierKey.from_committer_key(ck))
@@ -2134,7 +2488,7 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
     out.update({"times_s": timed_s, "glv_pairs_2^20_s": pairs,
                 "glv_launches": glv_launches, "glv_lanes": glv_lanes,
                 "mesh_launches": mesh_launches, "mesh_lanes": mesh_lanes,
-                "mesh_sc_launches": mesh_sc,
+                "mesh_sc_launches": mesh_sc, "mesh_fr": mesh_fr,
                 "golden_bytes_equal": ["snark", "snark_elastic", "elastic_dummy",
                                        "psnark"]})
     log(json.dumps({"mesh_glv": out}))
@@ -2170,6 +2524,7 @@ def phase_examples(card):
         mod = importlib.import_module(f"gemini_tpu_torch.examples.{name}")
         command = f"python -m gemini_tpu_torch.examples.{name} {' '.join(argv)}"
         sck.reset_launches()
+        reset_fr()
         buf = io.StringIO()
         t0 = time.time()
         with contextlib.redirect_stdout(buf):
@@ -2189,7 +2544,8 @@ def phase_examples(card):
         runs.append({"command": command, "wall_s": wall,
                      "prove_s": res.get("prove_s"),
                      "proof_size": res.get("proof_size"), "verified": True,
-                     "sc_launches": sc_launches()})
+                     "sc_launches": sc_launches(),
+                     **require_fr_kernels(command, need=("fr_mul",))})
     log(json.dumps({"examples": runs, "card": card}))
 
 
@@ -2202,9 +2558,28 @@ OWN_KERNELS = {"padd01_kernel": "padd01", "padd_kernel": "padd",
                "mont_mul_kernel": "mont_mul", "add_kernel": "add",
                "dbl_kernel": "dbl", "sc_message_kernel": "sc_message",
                "sc_message_split_kernel": "sc_message",
-               "sc_fused_split_kernel": "sc_fused", "sc_fold_kernel": "sc_fold"}
+               "sc_fused_split_kernel": "sc_fused", "sc_fold_kernel": "sc_fold",
+               "fr_mul_kernel": "fr_mul", "fr_addsub_kernel": "fr_addsub",
+               "fr_reduce_kernel": "fr_reduce", "fr_lane_sum_kernel": "fr_lane_sum"}
 ALL_KERNELS = {**OWN_KERNELS, "vpu_chain_kernel": "vpu_chain",
                "copy_add_kernel": "copy_add"}
+
+
+# The plain int64 chains' PyTorch kernels by name (phase 6): what the Fr
+# kernels take off the prove.  PROVE_CLASSES_PLAIN_FR: ms and launches
+# per class in the same 2^18 prove with every Fr op on the plain int64
+# chain (NVIDIA H100 80GB HBM3, 700 W; PERF.md), summed over the names
+# of its ten largest other kernels, so a lower bound where a class had
+# names below the ten; PROVE_EVENTS_PLAIN_FR, PROVE_BUSY_PLAIN_FR: its
+# device events and busy share.
+PROFILE_CLASSES = {"int64_add": ("CUDAFunctor_add<long>",),
+                   "binary_op": ("BinaryFunctor<long", "UnaryFunctor<long"),
+                   "or_reduction": ("or_kernel",),
+                   "dtoh_copy": ("Memcpy DtoH",)}
+PROVE_CLASSES_PLAIN_FR = {"int64_add": (177.88, 68765),
+                          "binary_op": (199.86, 102057),
+                          "or_reduction": (36.64, 7481), "dtoh_copy": (17.27, 7481)}
+PROVE_EVENTS_PLAIN_FR, PROVE_BUSY_PLAIN_FR = 223402, 0.07474
 
 
 def own_kernel(name: str):
@@ -2243,9 +2618,14 @@ def device_profile(fn):
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     own = {k: [0.0, 0] for k in OWN_KERNELS.values()}
+    classes = {k: [0.0, 0] for k in PROFILE_CLASSES}
     others, copy_ms, copy_n, memcpy_ms, memcpy_n = {}, 0.0, 0, 0.0, 0
     for e in dev:
         ms = (e.time_range.end - e.time_range.start) / 1e3
+        for cls, subs in PROFILE_CLASSES.items():
+            if any(sub in e.name for sub in subs):
+                classes[cls][0] += ms
+                classes[cls][1] += 1
         tag = own_kernel(e.name)
         if tag is not None:
             own[tag][0] += ms
@@ -2270,6 +2650,8 @@ def device_profile(fn):
                        for name, v in top],
         "copy_kernels_ms": copy_ms, "copy_kernels_count": copy_n,
         "memcpy_memset_ms": memcpy_ms, "memcpy_memset_count": memcpy_n,
+        "plain_chain_classes": {k: {"ms": v[0], "launches": v[1]}
+                                for k, v in classes.items()},
         "device_events": len(dev)}
 
 
@@ -2337,6 +2719,18 @@ def phase_profile(results, msm_in, r1cs, ck):
         out[label] = prof
     log(json.dumps({"profile": out}))
     prove = out["prove_2^18"]
+    classes = prove.get("plain_chain_classes", {})
+    log(json.dumps({"plain_chains_prove_2^18": {
+        "classes": {cls: {**classes.get(cls, {}), "plain_fr_ms": ms0,
+                          "plain_fr_launches": n0}
+                    for cls, (ms0, n0) in PROVE_CLASSES_PLAIN_FR.items()},
+        "device_events": prove.get("device_events"),
+        "plain_fr_device_events": PROVE_EVENTS_PLAIN_FR,
+        "busy_share": prove.get("busy_share"),
+        "plain_fr_busy_share": PROVE_BUSY_PLAIN_FR,
+        "fr_kernel_ms": {k: prove.get("kernel_ms", {}).get(k) for k in FR_KERNELS},
+        "fr_kernel_launches": {k: prove.get("kernel_launches", {}).get(k)
+                               for k in FR_KERNELS}}}))
     log(json.dumps({"round_kernels_prove_2^18": {
         name: {"device_ms": prove.get("kernel_ms", {}).get(name),
                "launches": prove.get("kernel_launches", {}).get(name),
@@ -2488,6 +2882,7 @@ def main() -> int:
     rates = phase("2b probes", phase_probes, results)
     phase("2c group API", phase_group_api, results)
     phase("2d sumcheck kernels", phase_sumcheck_kernels, results, usage)
+    phase("2e Fr kernels", phase_fr_kernels, results)
     msm_in, msm_out = phase("3 MSM", phase_msm)
     phase("4 golden", phase_golden)
     r1cs, ck, proof_18 = phase("5 projective 2^18", phase_full, results, False)

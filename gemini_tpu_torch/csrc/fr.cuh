@@ -11,8 +11,19 @@
 // below are bit-identical to the plain versions of fields/fp.py on
 // canonical operands (< r):
 //   mul   canonical Montgomery product: CIOS, then one conditional
-//         subtraction (fp.mont_mul_wide = _redc + _cond_sub)
+//         subtraction (fp.mont_mul_wide = _redc + _cond_sub); its first
+//         operand must be below r, its second may be any 256-bit value
 //   add   canonical a + b (fp.add: the sum, minus r unless that borrows)
+//   sub   canonical a - b (fp.sub: the difference, plus r on a borrow)
+//   mont_words  redc over a word stream: x * v * 2^(-32 nw) mod r for a
+//         v of nw words, any length (fr_kernels.cu's fr_reduce)
+// add and sub drop carries off 2^256 as the plain versions do, so they
+// agree with them bit for bit on any 256-bit operands.
+//
+// Exact sums: add_term / add_sum keep a sum of elements as 288 bits
+// (9 words) on the carry chain.  Fewer than 2^31 terms below 2^256 sum
+// below 2^287, so such a sum never wraps, in whatever order its parts
+// are added; 18 16-bit limbs of it are fp.lane_sum's output.
 //
 // The Montgomery core is fq.cuh's CIOS on the carry flag with 8 words:
 // the same even/odd split of the accumulator (X: pairs at words 0-1,
@@ -21,10 +32,12 @@
 // instructions in a host build.  r = 1 mod 2^32, so the per-word factor
 // -r^-1 mod 2^32 is 0xffffffff.
 //
-// Why nothing overflows (r < 2^255): after word i the accumulator is
-// (A_i B + M_i r) / 2^(32(i+1)) < B + r < 2r < 2^256, A_i and M_i the
-// low i+1 words of a and m; within a word it grows by at most
-// 2^32 (B + r) < 2^288, so it fits X and Y's 9 words and no carry
+// Why nothing overflows (r < 2^255): the core adds a * b_i for each word
+// b_i of b in turn, so after word i the accumulator is
+// (a B_i + M_i r) / 2^(32(i+1)) < a + r < 2r < 2^256 for a < r, B_i and
+// M_i the low i+1 words of b and m (b itself may be any 256-bit value,
+// or, in mont_words, any number of words); within a word it grows by at
+// most 2^32 (a + r) < 2^288, so it fits X and Y's 9 words and no carry
 // leaves Y's top word.  The result is below 2r, so one subtraction of r
 // makes it canonical.
 #pragma once
@@ -84,6 +97,23 @@ __device__ __forceinline__ F add(const F& a, const F& b) {
 #pragma unroll
   for (int k = 1; k < NW; ++k) d.w[k] = fq::subc_cc(s.w[k], R[k]);
   u32 borrow = fq::subc(0u, 0u) & 1u;
+  F r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = borrow ? s.w[k] : d.w[k];
+  return r;
+}
+
+// Canonical a - b: on a borrow, plus r (mod 2^256).
+__device__ __forceinline__ F sub(const F& a, const F& b) {
+  F d, s;
+  d.w[0] = fq::sub_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int k = 1; k < NW; ++k) d.w[k] = fq::subc_cc(a.w[k], b.w[k]);
+  u32 borrow = fq::subc(0u, 0u) & 1u;
+  s.w[0] = fq::add_cc(d.w[0], R[0]);
+#pragma unroll
+  for (int k = 1; k < NW - 1; ++k) s.w[k] = fq::addc_cc(d.w[k], R[k]);
+  s.w[NW - 1] = fq::addc(d.w[NW - 1], R[NW - 1]);
   F r;
 #pragma unroll
   for (int k = 0; k < NW; ++k) r.w[k] = borrow ? s.w[k] : d.w[k];
@@ -164,7 +194,51 @@ __device__ __forceinline__ F canon(const F& a) {
   return r;
 }
 
-// Canonical Montgomery product: inputs < r, output in [0, r).
+// Canonical Montgomery product: a < r, b any 256-bit value; output in
+// [0, r).
 __device__ __forceinline__ F mul(const F& a, const F& b) { return canon(mont_core(a, b)); }
+
+// Canonical x * V * 2^(-32 nw) mod r for x < r and V the nw words that
+// next() returns, lowest first (nw even, any length): the core's word
+// steps in a loop, from a zero state (a word step from zeros is the
+// first word's).
+template <class Next>
+__device__ __forceinline__ F mont_words(const F& x, int nw, Next next) {
+  u32 even[NW], odd[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) even[k] = odd[k] = 0;
+  for (int i = 0; i < nw; i += 2) {
+    word_step(even, odd, x, next(), false);
+    word_step(odd, even, x, next(), false);
+  }
+  F r;
+  r.w[0] = fq::add_cc(even[0], odd[1]);
+#pragma unroll
+  for (int k = 1; k < NW - 1; ++k) r.w[k] = fq::addc_cc(even[k], odd[k + 1]);
+  r.w[NW - 1] = fq::addc(even[NW - 1], 0u);
+  return canon(r);
+}
+
+// ---------------------------------------------------------------------------
+// Exact sums: 288 bits, 9 little-endian words
+// ---------------------------------------------------------------------------
+
+constexpr int SW = NW + 1;  // words of a sum
+
+// s += x for x < 2^256; no carry leaves the top word (headroom above).
+__device__ __forceinline__ void add_term(u32* s, const F& x) {
+  s[0] = fq::add_cc(s[0], x.w[0]);
+#pragma unroll
+  for (int k = 1; k < NW; ++k) s[k] = fq::addc_cc(s[k], x.w[k]);
+  s[NW] = fq::addc(s[NW], 0u);
+}
+
+// s += x, both 288-bit.
+__device__ __forceinline__ void add_sum(u32* s, const u32* x) {
+  s[0] = fq::add_cc(s[0], x[0]);
+#pragma unroll
+  for (int k = 1; k < SW - 1; ++k) s[k] = fq::addc_cc(s[k], x[k]);
+  s[SW - 1] = fq::addc(s[SW - 1], x[SW - 1]);
+}
 
 }  // namespace fr

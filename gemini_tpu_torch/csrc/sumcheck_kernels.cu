@@ -100,7 +100,7 @@ constexpr int kMaxThreads = 256;  // a block: 32-256 threads, a multiple of 32
 constexpr int kMinBlocks = 2;     // resident 256-thread blocks an SM: <= 128 registers
 constexpr int kMaxWarps = kMaxThreads / kWarp;
 constexpr int kMaxBlocks = 4096;  // the grid's cap; the scratch holds its partials
-constexpr int kSumWords = fr::NW + 1;  // a 288-bit running sum
+constexpr int kSumWords = fr::SW;  // a 288-bit running sum
 constexpr int kPartial = 2 * kSumWords;  // a's words, then b's
 constexpr int kOutLimbs = 18;
 constexpr int kFoldThreads = 256;
@@ -162,30 +162,14 @@ __device__ __forceinline__ void clear(Sums& s) {
   for (int k = 0; k < kSumWords; ++k) s.a[k] = s.b[k] = 0;
 }
 
-// s += x for x < 2^256; no carry leaves the top word (headroom above).
-__device__ __forceinline__ void add_term(u32* s, const F& x) {
-  s[0] = fq::add_cc(s[0], x.w[0]);
-#pragma unroll
-  for (int k = 1; k < fr::NW; ++k) s[k] = fq::addc_cc(s[k], x.w[k]);
-  s[fr::NW] = fq::addc(s[fr::NW], 0u);
-}
-
-// s += x, both 288-bit.
-__device__ __forceinline__ void add_sum(u32* s, const u32* x) {
-  s[0] = fq::add_cc(s[0], x[0]);
-#pragma unroll
-  for (int k = 1; k < kSumWords - 1; ++k) s[k] = fq::addc_cc(s[k], x[k]);
-  s[kSumWords - 1] = fq::addc(s[kSumWords - 1], x[kSumWords - 1]);
-}
-
 // One pair's message terms:
 // a = (fe ge) T, b = (fe go + (ge fo) twist) T (_round_partials' order).
 __device__ __forceinline__ void pair_terms(Sums& s, const F& fe, const F& fo,
                                            const F& ge, const F& go, const F& t,
                                            const F& twist) {
-  add_term(s.a, fr::mul(fr::mul(fe, ge), t));
+  fr::add_term(s.a, fr::mul(fr::mul(fe, ge), t));
   F cross = fr::add(fr::mul(fe, go), fr::mul(fr::mul(ge, fo), twist));
-  add_term(s.b, fr::mul(cross, t));
+  fr::add_term(s.b, fr::mul(cross, t));
 }
 
 // Lane 0 gets the sum of lanes 0 .. 2 * kTop - 1 (all 32 lanes call it).
@@ -199,8 +183,8 @@ __device__ __forceinline__ void warp_sum(Sums& s) {
       xa[k] = __shfl_down_sync(kFullMask, s.a[k], off);
       xb[k] = __shfl_down_sync(kFullMask, s.b[k], off);
     }
-    add_sum(s.a, xa);
-    add_sum(s.b, xb);
+    fr::add_sum(s.a, xa);
+    fr::add_sum(s.b, xb);
   }
 }
 
@@ -254,10 +238,10 @@ __device__ void reduce_and_finish(Sums& s, u32* partials, unsigned* ticket,
     u32 x[kSumWords];
 #pragma unroll
     for (int k = 0; k < kSumWords; ++k) x[k] = __ldcg(p + k);
-    add_sum(s.a, x);
+    fr::add_sum(s.a, x);
 #pragma unroll
     for (int k = 0; k < kSumWords; ++k) x[k] = __ldcg(p + kSumWords + k);
-    add_sum(s.b, x);
+    fr::add_sum(s.b, x);
   }
   block_sum(s, sh);
   if (threadIdx.x == 0) {
@@ -343,7 +327,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     const bool live = q < halves;
     const long long k = live ? q >> 1 : pairs - 1;
     F x = half_term(h, lane(in.f, 2 * k + h), lane(in.g, 2 * k + h), lane(in.t, k), twist);
-    if (live) add_term(acc, x);
+    if (live) fr::add_term(acc, x);
   }
   Sums s = as_sums(h, acc);
   reduce_and_finish(s, partials, ticket, out);
@@ -375,7 +359,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
       fr::store(g2, halves, 2 * j + h, xg);
     }
     F x = half_term(h, xf, xg, lane(in.t, 2 * j), twist_next);
-    if (live) add_term(acc, x);
+    if (live) fr::add_term(acc, x);
   }
   Sums s = as_sums(h, acc);
   reduce_and_finish(s, partials, ticket, out);

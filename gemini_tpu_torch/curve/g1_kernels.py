@@ -161,7 +161,7 @@ def _rmm_add(a, b, c, d):
 
 
 def _rneg(a):
-    return _carry(_k("mod2", a) - a)[0]
+    return _carry(_k("mod2", a) - a, FQ)[0]
 
 
 def _rmm_sub(a, b, c, d):
@@ -169,14 +169,14 @@ def _rmm_sub(a, b, c, d):
 
 
 def _radd(a, b):
-    s, _ = _carry(a + b)
-    d, c = _carry(s - _k("mod2", s))
+    s, _ = _carry(a + b, FQ)
+    d, c = _carry(s - _k("mod2", s), FQ)
     return torch.where((c < 0).unsqueeze(0), s, d)
 
 
 def _rsub(a, b):
-    d, c = _carry(a - b)
-    f, _ = _carry(d + _k("mod2", d))
+    d, c = _carry(a - b, FQ)
+    f, _ = _carry(d + _k("mod2", d), FQ)
     return torch.where((c < 0).unsqueeze(0), f, d)
 
 
@@ -249,15 +249,15 @@ def _mm(a, b):
 
 def _fadd(a, b):
     """a + b mod 2^384, minus p when that is >= p or the sum carried out."""
-    s, cout = _carry(a + b)
-    d, c = _carry(s - _k("mod", s))
+    s, cout = _carry(a + b, FQ)
+    d, c = _carry(s - _k("mod", s), FQ)
     return torch.where(((c >= 0) | (cout > 0)).unsqueeze(0), d, s)
 
 
 def _fsub(a, b):
     """a - b mod 2^384, plus p (mod 2^384) on a borrow."""
-    d, c = _carry(a - b)
-    f, _ = _carry(d + _k("mod", d))
+    d, c = _carry(a - b, FQ)
+    f, _ = _carry(d + _k("mod", d), FQ)
     return torch.where((c < 0).unsqueeze(0), f, d)
 
 

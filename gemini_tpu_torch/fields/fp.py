@@ -14,8 +14,13 @@ followed by a limb-serial REDC; its result is the unique
 (a*b + m*p) / 2^(16L) with m in [0, 2^(16L)), whatever the limb width,
 so it agrees bit for bit with the reference's CIOS.
 
-On CUDA, Fq Montgomery products go through the hand-written kernel
-(curve/g1_kernels.py); everything else here is plain torch.
+On CUDA, every Fr op (add, sub, neg, mont_mul and what is built on it,
+reduce_relaxed, lane_sum, mul_lane_sum) launches a hand-written kernel
+(fields/fr_kernels.py) and Fq Montgomery products another
+(curve/g1_kernels.py); the `_*_plain` functions below are those
+kernels' plain versions, which run on CPU tensors (and for Fq's
+additive ops on the card).  `CUDA_CARRIES` counts `_carry` calls on
+CUDA tensors by field: with the kernels in place an Fr count stays 0.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import params
+from . import fr_kernels
 
 MASK = params.LIMB_MASK
 LIMB_BITS = params.LIMB_BITS
@@ -178,14 +184,22 @@ def _col(limbs: torch.Tensor, batch_ndim: int) -> torch.Tensor:
     return limbs.reshape(limbs.shape[0], *([1] * batch_ndim))
 
 
-def _carry(t: torch.Tensor):
-    """Resolve carries of int64 limbs (E, *batch), any sign: returns
-    (limbs in [0, 2^16), signed carry out of the top limb).  A negative
-    carry is a borrow: the limbs then hold the value mod 2^(16E).
+CUDA_CARRIES = {"Fr": 0, "Fq": 0}
+
+
+def _carry(t: torch.Tensor, spec: FieldSpec):
+    """Resolve carries of int64 limbs (E, *batch) of a `spec` value, any
+    sign: returns (limbs in [0, 2^16), signed carry out of the top limb).
+    A negative carry is a borrow: the limbs then hold the value mod
+    2^(16E).
 
     Whole-tensor passes (split every limb, add each carry one limb up)
     until no limb carries: pass k leaves limb k-1 final, so at most E+1
-    passes, and random data settles in three or four."""
+    passes, and random data settles in three or four.  Each pass reads a
+    flag on the host, so on a CUDA tensor the call is counted in
+    CUDA_CARRIES."""
+    if t.is_cuda:
+        CUDA_CARRIES[spec.name] += 1
     x = t
     c = torch.zeros_like(t[0])
     while True:
@@ -197,9 +211,9 @@ def _carry(t: torch.Tensor):
         c = c + hi[-1]
 
 
-def _cond_sub(limbs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Normalized value < 2q -> [0, q) (q an (L,) limb column)."""
-    d, c = _carry(limbs - _col(q, limbs.ndim - 1))
+def _cond_sub(spec: FieldSpec, limbs: torch.Tensor) -> torch.Tensor:
+    """Normalized value < 2p -> [0, p)."""
+    d, c = _carry(limbs - _col(spec.const("mod", limbs.device), limbs.ndim - 1), spec)
     return torch.where((c < 0).unsqueeze(0), limbs, d)
 
 
@@ -230,15 +244,14 @@ def _redc(spec: FieldSpec, t: torch.Tensor, e: int) -> torch.Tensor:
         m = (t[i] * spec.n0inv) & MASK
         t[i:i + L] += m.unsqueeze(0) * q
         t[i + 1] += t[i] >> LIMB_BITS
-    out, _ = _carry(t[e:e + L])
+    out, _ = _carry(t[e:e + L], spec)
     return out
 
 
 def mont_mul_wide(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b * 2^(-16E) mod p on int64 limbs, canonical: a (E, ...)
     normalized, b (L, ...) normalized < p."""
-    r = _redc(spec, _mul_wide(a, b), a.shape[0])
-    return _cond_sub(r, spec.const("mod", r.device))
+    return _cond_sub(spec, _redc(spec, _mul_wide(a, b), a.shape[0]))
 
 
 def _w(a: torch.Tensor) -> torch.Tensor:
@@ -246,30 +259,54 @@ def _w(a: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Public ops: (L, *batch) int32 normalized Montgomery tensors.
+# Public ops: (L, *batch) int32 normalized Montgomery tensors.  Fr on a
+# CUDA tensor goes to fields/fr_kernels.py; anything else to the plain
+# versions.
 # ---------------------------------------------------------------------------
 
 
-def add(spec: FieldSpec, a, b):
-    s, _ = _carry(_w(a) + _w(b))  # < 2p < 2^(16L): no carry out
-    return _cond_sub(s, spec.const("mod", s.device)).to(I32)
+def _fr_kernel(spec: FieldSpec, a) -> bool:
+    return spec is FR and a.is_cuda
 
 
-def sub(spec: FieldSpec, a, b):
-    d, c = _carry(_w(a) - _w(b))
+def _add_plain(spec: FieldSpec, a, b):
+    s, _ = _carry(_w(a) + _w(b), spec)  # < 2p < 2^(16L): no carry out
+    return _cond_sub(spec, s).to(I32)
+
+
+def _sub_plain(spec: FieldSpec, a, b):
+    d, c = _carry(_w(a) - _w(b), spec)
     q = _col(spec.const("mod", d.device), d.ndim - 1)
-    fixed, _ = _carry(d + q)  # a - b + p, wrapping the borrow away
+    fixed, _ = _carry(d + q, spec)  # a - b + p, wrapping the borrow away
     return torch.where((c < 0).unsqueeze(0), fixed, d).to(I32)
 
 
+def _mont_mul_plain(spec: FieldSpec, a, b):
+    return mont_mul_wide(spec, _w(a), _w(b)).to(I32)
+
+
+def add(spec: FieldSpec, a, b):
+    if _fr_kernel(spec, a):
+        return fr_kernels.addsub(a, b, False)
+    return _add_plain(spec, a, b)
+
+
+def sub(spec: FieldSpec, a, b):
+    if _fr_kernel(spec, a):
+        return fr_kernels.addsub(a, b, True)
+    return _sub_plain(spec, a, b)
+
+
 def neg(spec: FieldSpec, a):
+    if _fr_kernel(spec, a):
+        return sub(spec, a.new_zeros((spec.n_limbs,) + (1,) * (a.ndim - 1)), a)
     return sub(spec, torch.zeros_like(a), a)
 
 
 def mont_mul(spec: FieldSpec, a, b):
     """Montgomery product a*b*R^{-1} mod p, elementwise over the batch
-    (batch shapes broadcast).  Fq on CUDA runs the hand-written kernel;
-    on the CPU and for Fr this is plain torch."""
+    (batch shapes broadcast): a normalized, b below p.  On CUDA, Fq and
+    Fr run hand-written kernels; on the CPU this is plain torch."""
     if spec is FQ:
         from ..curve import g1_kernels
 
@@ -278,7 +315,9 @@ def mont_mul(spec: FieldSpec, a, b):
             a.expand(shape).reshape(spec.n_limbs, -1).contiguous(),
             b.expand(shape).reshape(spec.n_limbs, -1).contiguous())
         return out.reshape(shape)
-    return mont_mul_wide(spec, _w(a), _w(b)).to(I32)
+    if _fr_kernel(spec, a):
+        return fr_kernels.mul(a, b)
+    return _mont_mul_plain(spec, a, b)
 
 
 def mont_sqr(spec: FieldSpec, a):
@@ -288,15 +327,20 @@ def mont_sqr(spec: FieldSpec, a):
 def reduce_relaxed(spec: FieldSpec, v):
     """Reduce relaxed non-negative limbs (E rows, each < 2^47) into a
     normalized element of [0, p): value-preserving mod p, so relaxed
-    sums of Montgomery elements reduce to the Montgomery field sum.
+    sums of Montgomery elements reduce to the Montgomery field sum."""
+    if _fr_kernel(spec, v):
+        return fr_kernels.reduce(v)
+    return _reduce_relaxed_plain(spec, v)
 
-    Method (the reference's, with three spare limbs for int64 sums):
+
+def _reduce_relaxed_plain(spec: FieldSpec, v):
+    """Method (the reference's, with three spare limbs for int64 sums):
     carry-propagate to E+3 16-bit limbs, then one Montgomery pass
     against K = 2^(16(E+3)) mod p, which computes
     V * K * 2^(-16(E+3)) = V mod p."""
     v = _w(v)
     ext = torch.cat([v, v.new_zeros((3, *v.shape[1:]))], dim=0)
-    limbs, _ = _carry(ext)
+    limbs, _ = _carry(ext, spec)
     E = limbs.shape[0]
     K = pow(2, LIMB_BITS * E, spec.modulus)
     k = _col(torch.from_numpy(_int_to_limbs(K, spec.n_limbs).astype(np.int64))
@@ -342,11 +386,25 @@ def lane_sum(spec: FieldSpec, a, axis: int = 1):
     Montgomery limb values (16-bit normalized; the two extra limbs hold
     the overflow) — the same limbs as the reference's lane_sum.  Decode
     on host with `decode_relaxed`."""
+    if _fr_kernel(spec, a):
+        return fr_kernels.lane_sum(a, axis)
+    return _lane_sum_plain(spec, a, axis)
+
+
+def _lane_sum_plain(spec: FieldSpec, a, axis: int = 1):
     assert axis >= 1
     s = _w(a).sum(dim=axis)
     s = torch.cat([s, s.new_zeros((2, *s.shape[1:]))], dim=0)
-    limbs, _ = _carry(s)
+    limbs, _ = _carry(s, spec)
     return limbs.to(I32)
+
+
+def mul_lane_sum(spec: FieldSpec, a, b, axis: int = 1):
+    """lane_sum(spec, mont_mul(spec, a, b), axis): on CUDA (Fr) one
+    kernel pass that never writes the products."""
+    if _fr_kernel(spec, a):
+        return fr_kernels.lane_sum(a, axis, b)
+    return lane_sum(spec, mont_mul(spec, a, b), axis)
 
 
 def is_zero(spec: FieldSpec, a):

@@ -82,8 +82,10 @@ def lane_prod(spec: FieldSpec, v) -> int:
 
 
 def ip(spec: FieldSpec, a, b) -> int:
-    """Inner product of two (L, N) Montgomery vectors -> canonical int."""
-    s = fp.lane_sum(spec, fp.mont_mul(spec, a, b), axis=1)
+    """Inner product of two (L, N) Montgomery vectors -> canonical int:
+    one fused product-and-sum pass (on the card, one fr_lane_sum launch),
+    then one 18-limb readback."""
+    s = fp.mul_lane_sum(spec, a, b, axis=1)
     return spec.decode_relaxed(s[:, None])[0]
 
 

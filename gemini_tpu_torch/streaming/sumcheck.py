@@ -47,13 +47,15 @@ def _fold_weights(challenges: List[int], twisted: bool, twist: int, device):
 
 
 def _fold_block(block: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """(L, B) base block -> (L, B / 2^j) folded values."""
+    """(L, B) base block -> (L, B / 2^j) folded values: one weighted
+    exact group sum (on the card, one fr_lane_sum launch with the
+    weights) and one reduction."""
     L, B = block.shape
     m = weights.shape[1]
     assert B % m == 0
     grouped = block.reshape(L, B // m, m)
-    prods = fp.mont_mul(FR, grouped, weights[:, None, :])
-    return fp.reduce_relaxed(FR, fp.lane_sum(FR, prods, axis=2))
+    return fp.reduce_relaxed(FR, fp.mul_lane_sum(FR, grouped, weights[:, None, :],
+                                                 axis=2))
 
 
 class SpaceProver:
