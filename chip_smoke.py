@@ -63,9 +63,30 @@ native host library from the sources in the checkout, then, in order:
      strided view) and at E = 16 on every size; times each at 2^20 and
      2^14 lanes beside its bound and its plain version (one
      {"fr_kernel_times": ...} line);
-  3. runs the kernel MSM pipeline at 2^16 against the host Pippenger and
+  2f. holds the MSM window chunk's glue kernels (msm_digits, msm_pack,
+     msm_sort_gather, msm_walk_down: csrc/msm_kernels.cu) against their
+     plain versions (ops/msm.py `_digits_plain`, `_keys_plain`,
+     `_pack_plain`, `_sort_gather_plain`; ops/ec_scan.py
+     `_walk_down_plain` with padd's and add's plain versions as the
+     combiner) bit for bit at every (lanes, c, Wc, bits) that plan_window
+     and _glv_plan return from 2^8 to 2^22 lanes, at c = 19 with Wc = 2,
+     and at c = 7 and c = 2, whose 10 and 17 reduce-chain levels take two
+     and three walk-down launches (random scalars with 0 and the largest, GLV signs, a tenth of
+     the points at infinity, y = 0; the walk-down in both configurations),
+     with every scalar small (dead windows) and every point at infinity
+     at the 2^10, 2^16 and 2^20 plans; holds padd, padd01 and add writing
+     into odd-slot and transposed output views against their fresh
+     outputs, and the copy-free stop-level scan against the same scan on
+     the plain padd and add; times each glue kernel at the MSM 2^20 and
+     2^14 plans beside its bound and its plain version (one
+     {"msm_glue_kernel_times": ...} line);
+  3. runs the kernel MSM pipeline at 2^16 (and at c = 7) against the
+     host Pippenger and
      times it at 2^20 on bench.py's inputs, in the projective and in the
-     Jacobian configuration (GEMINI_TPU_PROJ=0);
+     Jacobian configuration (GEMINI_TPU_PROJ=0), and counts the glue
+     kernels' launches per MSM 2^20 (one digits and one pack launch, one
+     gather and one walk-down per window chunk; a
+     {"msm_glue_launches_2^20": ...} line);
   4. proves the SNARK and the pSNARK golden instances on the card in
      both configurations, compares the proof bytes (and the pSNARK's
      index commitments) with gemini_tpu's
@@ -161,9 +182,14 @@ native host library from the sources in the checkout, then, in order:
      and the prove's plain int64 chains by kernel name (int64 adds,
      binary ops, `or` reductions, DtoH copies), device events, busy
      share and Fr kernel ms beside the prove's with plain Fr ops (one
-     {"plain_chains_prove_2^18": ...} line);
+     {"plain_chains_prove_2^18": ...} line), and per MSM 2^20 and per
+     2^18 prove the device events, copy kernels, int64 adds, binary ops,
+     `or` reductions, DtoH copies and glue kernels beside the counts
+     before the glue kernels (one {"msm_glue_profile": ...} line);
   6b. counts, untimed, the add lanes and warps that need the doubling in
-     one more Jacobian MSM at 2^20 and one more Jacobian 2^18 prove;
+     one more Jacobian MSM at 2^20 and one more Jacobian 2^18 prove (the
+     add launches: the walk-down's adds run inside msm_walk_down and are
+     not counted);
   7. prints the total seconds, the kernel table as one JSON line
      (bounds, shares of bound, ptxas registers and spills), the card
      line, and as the last line {"ok": true, "device": {...}}.  Each
@@ -171,13 +197,14 @@ native host library from the sources in the checkout, then, in order:
 
 Each kernel's launch count is read from its own path, with every count
 set to 0 just before the path runs: padd, padd01, mont_mul, the round
-kernels and the Fr kernels from the projective prove (5), add from the
-Jacobian prove (5b), dbl from the group API (2c), vpu_chain from
+kernels, the Fr kernels and the MSM glue kernels from the projective
+prove (5; the glue kernels also from the Jacobian prove, 5b), add from
+the Jacobian prove (5b), dbl from the group API (2c), vpu_chain from
 vpubench, copy_add from mmbench (2b).  Every prove (5-5g) must run its
 Fr ops on the Fr kernels: each of the four launches (the examples:
-fr_mul) and `_carry` runs on no CUDA tensor of Fr (fields/fp.py
-CUDA_CARRIES; the Fq count, the MSM's plain additive Fq ops, is
-printed).
+fr_mul) and `_carry` runs on no CUDA tensor, Fr or Fq (fields/fp.py
+CUDA_CARRIES), and its MSMs on the glue kernels: each of the four
+launches.
 The pSNARK prove's (5c) padd, padd01 and mont_mul launches are the
 table's `psnark_launches`, the 2^24 elastic prove's (5d) its
 `elastic_launches`, the 2^20 elastic pSNARK prove's (5e) its
@@ -228,12 +255,15 @@ SC_SOURCE = "gemini_tpu_torch/csrc/sumcheck_kernels.cu"
 SC_KERNELS = ("sc_message", "sc_fused", "sc_fold")
 FR_SOURCE = "gemini_tpu_torch/csrc/fr_kernels.cu"
 FR_KERNELS = ("fr_mul", "fr_addsub", "fr_reduce", "fr_lane_sum")
+MSM_SOURCE = "gemini_tpu_torch/csrc/msm_kernels.cu"
+MSM_KERNELS = ("msm_digits", "msm_pack", "msm_sort_gather", "msm_walk_down")
 KERNELS = ("padd", "padd01", "mont_mul", "add", "dbl", "vpu_chain", "copy_add",
-           *SC_KERNELS, *FR_KERNELS)
+           *SC_KERNELS, *FR_KERNELS, *MSM_KERNELS)
 SOURCES = {k: G1_SOURCE for k in KERNELS[:5]}
 SOURCES.update(vpu_chain=PROBE_SOURCE, copy_add=PROBE_SOURCE,
                **dict.fromkeys(SC_KERNELS, SC_SOURCE),
-               **dict.fromkeys(FR_KERNELS, FR_SOURCE))
+               **dict.fromkeys(FR_KERNELS, FR_SOURCE),
+               **dict.fromkeys(MSM_KERNELS, MSM_SOURCE))
 # The sumcheck round kernels at n lanes of f and g (64 bytes per (16,)
 # int32 element): Fr products per lane and bytes moved per lane (message:
 # f, g and n/2 twist powers read; fused: f, g and n/4 powers read, f2
@@ -258,6 +288,10 @@ REPLACES = {
     "fr_addsub": "gemini_tpu/fields/fp.py:199, :206",
     "fr_reduce": "gemini_tpu/fields/fp.py:327",
     "fr_lane_sum": "gemini_tpu/fields/fp.py:412",
+    "msm_digits": "gemini_tpu/ops/msm.py:110, :129",
+    "msm_pack": "gemini_tpu/ops/msm.py:178",
+    "msm_sort_gather": "gemini_tpu/ops/msm.py:199",
+    "msm_walk_down": "gemini_tpu/ops/ec_scan.py:265",
 }
 
 
@@ -1476,6 +1510,353 @@ def phase_fr_kernels(results):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2f: the MSM window chunk's glue kernels
+# ---------------------------------------------------------------------------
+
+
+SECTOR = 32
+# The glue's bounds count what each launch must move: every input sector
+# it reads, once (the distinct 32-byte sectors of its gathers), and every
+# byte it writes.  msm_sort_gather: the packed rows its order reads (96
+# bytes, 3 sectors each), all of the sorted keys and the order (8 bytes
+# each a lane: the gather reads a permutation of them, and sd reads the
+# keys in order), and its outputs x and y (192 bytes a lane), mask (1)
+# and sd (8).  msm_pack's bytes a point: 192 read, 96 written.
+SG_OUT_BYTES = 8 + 192 + 1 + 8
+PACK_BYTES = 192 + 96
+GLUE_LOGS = range(8, 23)  # lanes 2^8 .. 2^22
+GLUE_TIMED = (1 << 20, 1 << 14)  # the MSM 2^20 and 2^14 plans
+
+
+def glue_plans():
+    """Every (lanes, c, Wc, bits) that plan_window and _glv_plan return
+    from 2^8 to 2^22 lanes, c = 19 at 2^16 lanes with Wc = 2 (windows
+    over three limbs, a chunk of two windows), and two plans of more
+    reduce-chain levels than one walk-down launch takes: c = 7 at 2^16
+    lanes with Wc = 2 (10 levels, two launches) and c = 2 at 2^18 (17
+    levels, three)."""
+    from gemini_tpu_torch.ops import glv, msm
+
+    plans = set()
+    for k in GLUE_LOGS:
+        plans.add((1 << k, *msm.plan_window(1 << k), msm.N_BITS))
+        plans.add((1 << k, *msm._glv_plan(1 << k), glv.GLV_BITS))
+    plans.add((1 << 16, 19, 2, msm.N_BITS))
+    plans.add((1 << 16, 7, 2, msm.N_BITS))
+    plans.add((1 << 18, 2, 1, msm.N_BITS))
+    return sorted(plans)
+
+
+def glue_inputs(gen, n, bits, kind):
+    """Scalars and points of n lanes on the card: (limbs, n) int32 scalars
+    (16 limbs below R, or 8 limbs of a GLV component), 0 and the largest
+    (R - 1, or the component bound - 1) at lanes 0 and 1, or with kind
+    "small" every scalar below 2^8 (every window above the first dead);
+    points (24, n) canonical x and y with a random tenth at infinity, or
+    every point at infinity with kind "inf"; the GLV component signs."""
+    import torch
+
+    from gemini_tpu_torch.ops import glv
+    from gemini_tpu_torch.params import R
+
+    limbs, top = (16, 0x73ED) if bits > 128 else (8, 0x2000)
+    big = R - 1 if bits > 128 else glv.COMPONENT_BOUND - 1
+
+    def rand(rows, hi):
+        t = torch.randint(0, 1 << 16, (rows, n), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        t[-1] = torch.randint(0, hi, (n,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        return t
+
+    sc = rand(limbs, top)
+    sc[:, 0] = 0
+    sc[:, 1] = torch.tensor([(big >> (16 * i)) & 0xFFFF for i in range(limbs)])
+    if kind == "small":
+        sc[1:] = 0
+        sc[0] &= 0xFF
+    px, py = rand(24, 0x1A01), rand(24, 0x1A01)
+    py[:, 2] = 0  # -0 = 0
+    pinf = torch.rand((n,), generator=gen, device="cuda") < 0.1
+    if kind == "inf":
+        pinf[:] = True
+    flip = torch.rand((n,), generator=gen, device="cuda") < 0.5
+    return sc, px, py, pinf, flip
+
+
+def plain_combiner(proj):
+    """padd's (or add's) plain version as a combiner on CUDA tensors: the
+    walk-down's and the scan's plain reference with no kernel in it."""
+    from gemini_tpu_torch.curve import g1_kernels as gk
+
+    fn = gk.padd_plain if proj else gk.add_plain
+
+    def comb(a, b, out=None):
+        shape = a[0].shape
+        res = [r.reshape(shape) for r in fn(*(t.reshape(24, -1) for t in (*a, *b)))]
+        if out is not None:
+            for o, r in zip(out, res):
+                o.copy_(r)
+        return tuple(res)
+
+    return comb
+
+
+def gathered_sectors(t, rows, w, idx):
+    """Ids of the 32-byte sectors that reading operand t (a (rows, *batch)
+    view, or with rows = 0 a (*batch) mask) at lanes (w, idx) touches, as
+    the walk-down's loads address it (curve/g1_kernels.lane_strides)."""
+    import torch
+
+    from gemini_tpu_torch.curve.g1_kernels import lane_strides
+
+    ls, bs, es = lane_strides(t, rows)
+    off = w * bs + idx * es
+    if rows:
+        off = off.reshape(1, -1) + torch.arange(rows, device=off.device)[:, None] * ls
+    return ((t.data_ptr() + off * t.element_size()) // SECTOR).reshape(-1)
+
+
+def walk_down_work(pos, scanned, levels, rev_bits):
+    """(bytes, IMADs) one walk-down launch over these positions needs:
+    per lane its position (8) and output (288 bytes), and the distinct
+    32-byte sectors that its loads touch: the top gather (x, y, z) where
+    the top position is live, and per level y at the stored index, x and
+    z (or the mask) where the position is even; one padd (21 x 144 word
+    products, two IMADs each) per lane and level."""
+    import torch
+
+    from gemini_tpu_torch.ops import ec_scan
+
+    w = (torch.arange(pos.shape[0], device=pos.device)[:, None].expand_as(pos)
+         if pos.ndim == 2 else torch.zeros_like(pos))
+    top = pos
+    for _ in levels:
+        top = (top - 1) >> 1
+    live = top >= 0
+    ids = [gathered_sectors(t, 24, w[live], top[live]) for t in scanned]
+    pk = pos
+    for k, (lx, ly, lz, is01) in enumerate(levels):
+        even = (pk >= 0) & (pk % 2 == 0)
+        sidx = ec_scan._stored_index(pk.clamp(min=0), lx.shape[-1],
+                                     rev_bits - k if rev_bits else 0)
+        ids += [gathered_sectors(ly, 24, w, sidx),
+                gathered_sectors(lx, 24, w[even], sidx[even]),
+                gathered_sectors(lz, 0 if is01 else 24, w[even], sidx[even])]
+        pk = (pk - 1) >> 1
+    sectors = torch.unique(torch.cat(ids)).numel()
+    lanes = pos.numel()
+    return (lanes * (8 + 288) + sectors * SECTOR,
+            lanes * len(levels) * WORD_PRODUCTS["padd"] * 2)
+
+
+def sort_gather_bytes(pp, skey, order):
+    """The bytes msm_sort_gather must move: the packed rows `order`
+    reads (3 sectors each, once), the keys and the order (8 bytes each a
+    lane), and SG_OUT_BYTES a lane."""
+    import torch
+
+    rows = torch.unique(order).numel()
+    return rows * 3 * SECTOR + skey.numel() * (8 + 8 + SG_OUT_BYTES)
+
+
+def check_glue_plan(results, gen, plan, kind, configs, keep=None):
+    """One plan's glue against the plain versions, bit for bit: the
+    digits (mags and negs; the sort keys, with the GLV signs where bits
+    = 128), the packed points, one window chunk's sort-gather (the first chunk, or with
+    kind "small" the last, all of whose windows are dead) and its
+    walk-down after the kernels' reduce chain and scan, in each of
+    `configs` (True: projective, False: Jacobian).  `keep` collects the
+    inputs for the timings."""
+    import torch
+
+    from gemini_tpu_torch.ops import ec_scan, msm
+    from gemini_tpu_torch.ops import msm_kernels as mk
+
+    n, c, wc, bits = plan
+    what = f"{n} lanes, c = {c}, Wc = {wc}, {bits}-bit scalars, {kind}"
+    sc, px, py, pinf, flip = glue_inputs(gen, n, bits, kind)
+    flip = flip if bits == 128 else None
+    W = -(-bits // c)
+    mags, negs = msm._digits_plain(sc, c, bits)
+    keys = mk.digits(sc, c, W, pinf, flip)
+    errs = {"msm_digits": compare("msm_digits", (keys,),
+                                  (msm._keys_plain(mags, negs, pinf, flip),), what)}
+    compare("msm_digits", msm.extract_signed_digits(sc, c, bits), (mags, negs),
+            f"{what} (the digits read from the keys, no flags)")
+    pp = mk.pack(px, py)
+    errs["msm_pack"] = compare("msm_pack", (pp,), (msm._pack_plain(px, py),), what)
+    w0 = W - wc if kind == "small" else 0
+    key = keys[w0:w0 + wc]
+    rb = ec_scan.bitrev_levels(n, 1 << (c - 1))
+    skey, order = torch.sort(key, dim=1)
+    got = mk.sort_gather(pp, skey, order, rb)
+    errs["msm_sort_gather"] = compare(
+        "msm_sort_gather", got, msm._sort_gather_plain(pp, skey, order, rb), what)
+    fx, fy, fm, sd = got
+    pos = msm._boundary_positions(sd, c)
+    errs["msm_walk_down"] = 0
+    for proj in configs:
+        comb, comb01 = msm.combiners(proj)
+        levels, scanned = ec_scan.reduce_and_scan(fx, fy, fm, pos.shape[-1], comb,
+                                                  comb01, rb)
+        before = mk.LAUNCHES["msm_walk_down"]
+        got = mk.walk_down(pos, scanned, levels, rb, proj)
+        launches = mk.LAUNCHES["msm_walk_down"] - before
+        if launches != max(1, -(-len(levels) // mk.MAX_LEVELS)):
+            raise AssertionError(f"msm_walk_down: {launches} launches for "
+                                 f"{len(levels)} levels at {what}")
+        err = compare("msm_walk_down", got,
+                      ec_scan._walk_down_plain(pos, scanned, levels, rb,
+                                               plain_combiner(proj)),
+                      f"{what}, {'projective' if proj else 'Jacobian'}")
+        errs["msm_walk_down"] = max(errs["msm_walk_down"], err)
+        if keep is not None and proj:
+            keep.update(sc=sc, c=c, W=W, pinf=pinf, px=px, py=py, pp=pp, skey=skey,
+                        order=order, rb=rb, pos=pos, scanned=scanned, levels=levels)
+    for name, err in errs.items():
+        res = results.setdefault(name, {"max_abs_err": 0, "bit_exact": True})
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+
+
+def check_strided_outputs(results):
+    """padd, padd01 and add writing into views, bit for bit against their
+    fresh outputs: the odd slots of a (3, 24, 4, 2m) buffer (the others
+    left as they were) and a transposed (24, m, 4) plane, on phase 2's
+    2^14-lane inputs as (24, 4, m); then the copy-free stop-level scan
+    with the kernels against the same scan with padd's and add's plain
+    versions, on (24, 4, 2^12) points."""
+    import torch
+
+    from gemini_tpu_torch.curve import g1_kernels as gk
+    from gemini_tpu_torch.ops import ec_scan
+
+    n = 1 << 14
+    m = n // 4
+    padd_in, padd01_in, _, _, jac_in, _, _ = kernel_inputs(n, seed=20261019)
+
+    def shaped(t):
+        return t.reshape(24, 4, m) if t.ndim == 2 else t.reshape(4, m)
+
+    for name, fn, ins in (("padd", gk.padd, padd_in), ("padd01", gk.padd01, padd01_in),
+                          ("add", gk.add, jac_in)):
+        p = [shaped(t) for t in ins]
+        fresh = fn(p[:3], p[3:])
+        buf = torch.full((3, 24, 4, 2 * m), -1, dtype=torch.int32, device="cuda")
+        err = compare(name, fn(p[:3], p[3:], out=tuple(buf[..., 1::2])), fresh,
+                      "output in odd slots")
+        if not bool((buf[..., 0::2] == -1).all()):
+            raise AssertionError(f"{name}: wrote outside its output views")
+        plane = torch.empty((3, 24, m, 4), dtype=torch.int32, device="cuda")
+        err = max(err, compare(name, fn(p[:3], p[3:], out=tuple(plane.transpose(-1, -2))),
+                               fresh, "output in a transposed plane"))
+        res = results.setdefault(name, {"max_abs_err": 0, "bit_exact": True})
+        res["max_abs_err"] = max(res.get("max_abs_err", 0), err)
+    for proj, ins in ((True, padd_in), (False, jac_in)):
+        s = torch.stack([t.reshape(24, 4, m)[..., :1 << 12] for t in ins[:3]])
+        comb = ec_scan.padd_points if proj else ec_scan.add_points
+        name = "padd" if proj else "add"
+        err = compare(name, ec_scan.inclusive_scan_ec(s, combiner=comb),
+                      ec_scan.inclusive_scan_ec(s, combiner=plain_combiner(proj)),
+                      "the copy-free scan of (24, 4, 2^12)")
+        res = results.setdefault(name, {"max_abs_err": 0, "bit_exact": True})
+        res["max_abs_err"] = max(res.get("max_abs_err", 0), err)
+    log("kernels padd, padd01, add: bit-exact into odd-slot and transposed output "
+        "views; the copy-free scan bit-exact against the plain padd and add")
+
+
+def phase_msm_glue(results):
+    """2f: the MSM window chunk's glue kernels (msm_digits, msm_pack,
+    msm_sort_gather, msm_walk_down: csrc/msm_kernels.cu) against their
+    plain versions, bit
+    for bit, at every plan of glue_plans() (random scalars with 0 and the
+    largest; the walk-down in both configurations), and with every scalar
+    small (dead windows) and every point at infinity at the 2^10, 2^16 and
+    2^20 plans; the strided outputs of padd, padd01 and add; then each
+    kernel timed at the MSM 2^20 and 2^14 plans (guarded events) beside its
+    bound (bytes at the HBM rate, or at the 2^14 plan, whose operands stay
+    in the L2, at phase 2b's measured L2 rate) and its plain version (host
+    clock, 2^20); prints one {"msm_glue_kernel_times": ...} line."""
+    import torch
+
+    from gemini_tpu_torch.benches.timing import event_ms
+    from gemini_tpu_torch.ops import ec_scan, msm
+    from gemini_tpu_torch.ops import msm_kernels as mk
+
+    gen = torch.Generator(device="cuda").manual_seed(20261020)
+    l2_rate = results["copy_add"]["bound_rate_bytes_per_s"]
+    kept = {}
+    plans = glue_plans()
+    for plan in plans:
+        n, c, wc, bits = plan
+        timed = n in GLUE_TIMED and bits == msm.N_BITS
+        keep = kept.setdefault(n, {}) if timed else None
+        check_glue_plan(results, gen, plan, "random", (True, False), keep)
+        if n in (1 << 10, 1 << 16, 1 << 20) and bits == msm.N_BITS and c != 19:
+            for kind in ("small", "inf"):
+                check_glue_plan(results, gen, plan, kind, (True, False))
+    log(f"MSM glue kernels: bit-exact at {len(plans)} plans {plans} (the walk-down "
+        "projective and Jacobian), with dead windows and all points at infinity")
+    check_strided_outputs(results)
+
+    times = {}
+    for name in MSM_KERNELS:
+        res = results[name]
+        for n in GLUE_TIMED:
+            k = kept[n]
+            kern, plain, work = {
+                "msm_digits": (
+                    lambda: mk.digits(k["sc"], k["c"], k["W"], k["pinf"]),
+                    lambda: msm._keys_plain(*msm._digits_plain(k["sc"], k["c"]),
+                                            k["pinf"]),
+                    lambda: (n * (4 * 16 + 1 + 8 * k["W"]), 0)),
+                "msm_pack": (
+                    lambda: mk.pack(k["px"], k["py"]),
+                    lambda: msm._pack_plain(k["px"], k["py"]),
+                    lambda: (n * PACK_BYTES, 0)),
+                "msm_sort_gather": (
+                    lambda: mk.sort_gather(k["pp"], k["skey"], k["order"], k["rb"]),
+                    lambda: msm._sort_gather_plain(k["pp"], k["skey"], k["order"],
+                                                   k["rb"]),
+                    lambda: (sort_gather_bytes(k["pp"], k["skey"], k["order"]), 0)),
+                "msm_walk_down": (
+                    lambda: mk.walk_down(k["pos"], k["scanned"], k["levels"], k["rb"],
+                                         True),
+                    lambda: ec_scan._walk_down_plain(k["pos"], k["scanned"], k["levels"],
+                                                     k["rb"], plain_combiner(True)),
+                    lambda: walk_down_work(k["pos"], k["scanned"], k["levels"],
+                                           k["rb"]))}[name]
+            ms = event_ms(kern, 100 if n < GLUE_TIMED[0] else 20, spin_cycles=40_000_000)
+            nbytes, imads = work()
+            # at the 2^14 plan every operand stays in the L2 between the
+            # timed launches: its bytes move at most at the L2 rate
+            # l2bench measured (phase 2b's copy_add row), as copy_add's are
+            rate = HBM_BYTES_PER_S if n == GLUE_TIMED[0] else l2_rate
+            bound = max(nbytes / rate, imads / IMAD_PER_S) * 1e3
+            by = "bytes" if nbytes / rate >= imads / IMAD_PER_S else "operations"
+            key = f"2^{n.bit_length() - 1}"
+            times.setdefault(name, {})[key] = {
+                "ms": ms, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                "bound_rate_bytes_per_s": rate,
+                "imads": imads, "lanes": {"msm_digits": n, "msm_pack": n,
+                                          "msm_sort_gather": k["skey"].numel(),
+                                          "msm_walk_down": k["pos"].numel()}[name]}
+            if n == GLUE_TIMED[0]:
+                res.update(ms=ms, plain_ms=plain_ms(plain), library_ms=None,
+                           bytes=nbytes, imads=imads, lanes=times[name][key]["lanes"],
+                           source=MSM_SOURCE, bound_ms=bound, bound_by=by)
+                times[name][key]["plain_ms"] = res["plain_ms"]
+            else:
+                res.update({"ms_2^14": ms, "bound_ms_2^14": bound,
+                            "bound_by_2^14": by, "bound_share_2^14": bound / ms})
+        log(f"kernel {name}: {res['ms_2^14']:.4f} ms at the 2^14 plan, {res['ms']:.4f} "
+            f"ms at the 2^20 plan (bound {res['bound_ms']:.4f} ms, "
+            f"{res['bound_ms'] / res['ms']:.1%} of it, {res['bound_by']}; plain "
+            f"{res['plain_ms']:.2f} ms)")
+    log(json.dumps({"msm_glue_kernel_times": times}))
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: MSM
 # ---------------------------------------------------------------------------
 
@@ -1537,7 +1918,8 @@ def phase_msm():
     from gemini_tpu_torch.curve import g1
     from gemini_tpu_torch.fields.fp import FR
     from gemini_tpu_torch.hostcurve import g1_msm
-    from gemini_tpu_torch.ops.msm import msm
+    from gemini_tpu_torch.ops import msm_kernels as mk
+    from gemini_tpu_torch.ops.msm import N_BITS, msm, plan_window
 
     n = 1 << 16
     pts, sc, s_np, host_pts = bench_msm_inputs(n)
@@ -1547,12 +1929,15 @@ def phase_msm():
     host_s = time.time() - t0
     if g1.decode_jacobian(msm(pts, sc))[0] != want:
         raise AssertionError("MSM 2^16: kernel pipeline differs from host Pippenger")
+    if g1.decode_jacobian(msm(pts, sc, c=7))[0] != want:  # 10 levels: 2 walk-downs
+        raise AssertionError("MSM 2^16, c = 7: kernel pipeline differs from host "
+                             "Pippenger")
     with jacobian_config():
         if g1.decode_jacobian(msm(pts, sc))[0] != want:
             raise AssertionError("MSM 2^16, GEMINI_TPU_PROJ=0: the Jacobian "
                                  "pipeline differs from host Pippenger")
-    log(f"msm 2^16: kernel pipeline == host Pippenger, projective and Jacobian "
-        f"(host {host_s:.2f} s)")
+    log(f"msm 2^16: kernel pipeline == host Pippenger, projective and Jacobian, "
+        f"and with c = 7 (host {host_s:.2f} s)")
 
     n = 1 << 20
     pts, sc, _, _ = bench_msm_inputs(n)
@@ -1577,6 +1962,24 @@ def phase_msm():
         out["jacobian"] = timed("jacobian")
     if out["projective"] != out["jacobian"]:
         raise AssertionError("MSM 2^20: the projective and Jacobian results differ")
+    # the glue's launches per MSM: one digits and one pack launch, one
+    # gather and one walk-down per window chunk, in both configurations
+    c, wc = plan_window(n)
+    chunks = -(-(-(-N_BITS // c)) // wc)
+    want = {"msm_digits": 1, "msm_pack": 1, "msm_sort_gather": chunks,
+            "msm_walk_down": chunks}
+    glue = {}
+    for config, ctx in (("projective", contextlib.nullcontext), ("jacobian",
+                                                                 jacobian_config)):
+        mk.reset_launches()
+        with ctx():
+            msm(pts, sc)
+        torch.cuda.synchronize()
+        glue[config] = dict(mk.LAUNCHES)
+        if glue[config] != want:
+            raise AssertionError(f"MSM 2^20 ({config}): glue launches {glue[config]}, "
+                                 f"want {want}")
+    log(json.dumps({"msm_glue_launches_2^20": {**glue, "c": c, "window_chunk": wc}}))
     return (pts, sc), out
 
 
@@ -1704,29 +2107,37 @@ def require_round_kernels(counts, what, fused=True):
 
 
 def reset_fr() -> None:
-    """Fr kernel launches and the `_carry` calls on CUDA tensors set to 0."""
+    """Fr kernel launches, the MSM glue kernels' launches and the `_carry`
+    calls on CUDA tensors set to 0."""
     from gemini_tpu_torch.fields import fp
     from gemini_tpu_torch.fields import fr_kernels as frk
+    from gemini_tpu_torch.ops import msm_kernels as mk
 
     frk.reset_launches()
+    mk.reset_launches()
     for k in fp.CUDA_CARRIES:
         fp.CUDA_CARRIES[k] = 0
 
 
-def require_fr_kernels(what, need=FR_KERNELS):
-    """The Fr ops of a run since reset_fr() went to the Fr kernels: each of
-    `need` launched, and `_carry` ran on no CUDA tensor of Fr.  Returns
-    {"fr_launches": ..., "fr_lanes": ..., "cuda_carries": ...} (the Fq
-    count is its plain additive ops on the card)."""
+def require_fr_kernels(what, need=FR_KERNELS, need_msm=MSM_KERNELS):
+    """The Fr ops and the MSMs of a run since reset_fr() went to the
+    kernels: each Fr kernel of `need` and each MSM glue kernel of
+    `need_msm` launched, and `_carry` ran on no CUDA tensor, Fr or Fq.
+    Returns {"fr_launches": ..., "fr_lanes": ..., "msm_launches": ...,
+    "msm_lanes": ..., "cuda_carries": ...}."""
     from gemini_tpu_torch.fields import fp
     from gemini_tpu_torch.fields import fr_kernels as frk
+    from gemini_tpu_torch.ops import msm_kernels as mk
 
     launches, carries = dict(frk.LAUNCHES), dict(fp.CUDA_CARRIES)
-    if carries["Fr"] or not all(launches[k] for k in need):
-        raise AssertionError(f"{what} ran Fr ops off the Fr kernels: launches "
-                             f"{launches}, _carry calls on CUDA tensors {carries}")
+    glue = dict(mk.LAUNCHES)
+    if (carries["Fr"] or carries["Fq"] or not all(launches[k] for k in need)
+            or not all(glue[k] for k in need_msm)):
+        raise AssertionError(f"{what} ran field ops or MSM glue off the kernels: "
+                             f"Fr launches {launches}, MSM glue launches {glue}, "
+                             f"_carry calls on CUDA tensors {carries}")
     return {"fr_launches": launches, "fr_lanes": dict(frk.LANES),
-            "cuda_carries": carries}
+            "msm_launches": glue, "msm_lanes": dict(mk.LANES), "cuda_carries": carries}
 
 
 @contextlib.contextmanager
@@ -1819,6 +2230,8 @@ def phase_full(results, jacobian: bool):
                 raise AssertionError(f"GEMINI_TPU_PROJ=0 2^{logn} {where} did not "
                                      f"run on the add kernel alone: {counts}")
         results["add"]["launches"] = launches["add"]
+        for name in MSM_KERNELS:
+            results[name]["jacobian_launches"] = fr["msm_launches"][name]
     else:
         for name in ("padd", "padd01", "mont_mul"):
             if launches[name] == 0:
@@ -1830,6 +2243,9 @@ def phase_full(results, jacobian: bool):
         for name in FR_KERNELS:
             results[name]["launches"] = fr["fr_launches"][name]
             results[name]["lanes_per_prove"] = fr["fr_lanes"][name]
+        for name in MSM_KERNELS:
+            results[name]["launches"] = fr["msm_launches"][name]
+            results[name]["lanes_per_prove"] = fr["msm_lanes"][name]
 
     bad = copy.deepcopy(proof)
     bad.zc_alpha = (bad.zc_alpha + 1) % R
@@ -1903,6 +2319,8 @@ def phase_psnark(results, card):
         results[name]["psnark_launches"] = sc_l[name]
     for name in FR_KERNELS:
         results[name]["psnark_launches"] = fr["fr_launches"][name]
+    for name in MSM_KERNELS:
+        results[name]["psnark_launches"] = fr["msm_launches"][name]
     # sumcheck 3: 13 TimeProvers, one readback per round that has messages
     third = batches[-1]
     if third["provers"] != 13 or third["readbacks"] != third["rounds"] - 1:
@@ -2005,6 +2423,8 @@ def phase_elastic(results, card):
         results[name]["elastic_launches"] = out["sc_launches"][name]
     for name in FR_KERNELS:
         results[name]["elastic_launches"] = out["fr_launches"][name]
+    for name in MSM_KERNELS:
+        results[name]["elastic_launches"] = out["msm_launches"][name]
     out["proof_bytes"] = len(snark_proof_bytes(proof))
 
     n = 1 << ELASTIC_CHECK_LOGN
@@ -2136,8 +2556,9 @@ def phase_psnark_elastic(results, card):
     require_round_kernels(sc_launches(), f"the 2^{PSNARK_ELASTIC_LOGN} elastic "
                           "pSNARK prove")
     fr = require_fr_kernels(f"the 2^{PSNARK_ELASTIC_LOGN} elastic pSNARK prove")
-    launches = {**gk.LAUNCHES, **probes.LAUNCHES, **sck.LAUNCHES, **fr["fr_launches"]}
-    lanes = {**gk.LANES, **sck.LANES, **fr["fr_lanes"]}
+    launches = {**gk.LAUNCHES, **probes.LAUNCHES, **sck.LAUNCHES, **fr["fr_launches"],
+                **fr["msm_launches"]}
+    lanes = {**gk.LANES, **sck.LANES, **fr["fr_lanes"], **fr["msm_lanes"]}
     out["cuda_carries"] = fr["cuda_carries"]
     spans.peak["after the last span"] = torch.cuda.max_memory_allocated()
     stage = max(spans.peak, key=spans.peak.get)
@@ -2297,6 +2718,7 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
     from gemini_tpu_torch.fields.fp import FR
     from gemini_tpu_torch.hostcurve import g1_msm
     from gemini_tpu_torch.kzg.commit import CommitterKey, VerifierKey
+    from gemini_tpu_torch.ops import msm_kernels as mk
     from gemini_tpu_torch.ops.msm import msm, msm_batch
     from gemini_tpu_torch.params import R
     from gemini_tpu_torch.parallel import (Mesh, ShardedTimeProver,
@@ -2340,15 +2762,17 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
         if decode(msm(p16, s16)) != want16:
             raise AssertionError("GLV MSM 2^16 differs from host Pippenger")
         gk.reset_launches()
+        mk.reset_launches()
         got = timed("glv_msm_2^20_first", lambda: decode(msm(pts, sc)))
-        glv_launches, glv_lanes = dict(gk.LAUNCHES), dict(gk.LANES)
+        glv_launches = {**gk.LAUNCHES, **mk.LAUNCHES}
+        glv_lanes = {**gk.LANES, **mk.LANES}
         if got != msm_out["projective"]:
             raise AssertionError("GLV MSM 2^20 differs from phase 3's MSM")
         with jacobian_config():
             if decode(msm(pts, sc)) != msm_out["jacobian"]:
                 raise AssertionError("GLV MSM 2^20, GEMINI_TPU_PROJ=0, differs "
                                      "from phase 3's MSM")
-    for name in ("padd", "padd01", "mont_mul"):
+    for name in ("padd", "padd01", "mont_mul", *MSM_KERNELS):
         if glv_launches[name] == 0:
             raise AssertionError(f"the GLV MSM launched no {name} kernel")
         results[name]["glv_launches"] = glv_launches[name]
@@ -2426,6 +2850,8 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
         results[name]["mesh_launches"] = mesh_sc[name]
     for name in FR_KERNELS:
         results[name]["mesh_launches"] = mesh_fr["fr_launches"][name]
+    for name in MSM_KERNELS:
+        results[name]["mesh_launches"] = mesh_fr["msm_launches"][name]
     if snark_proof_bytes(proof) != proof_18:
         raise AssertionError("the 2^18 SNARK with mesh= differs from phase 5's proof")
     proof.verify(r1cs, VerifierKey.from_committer_key(ck))
@@ -2560,7 +2986,10 @@ OWN_KERNELS = {"padd01_kernel": "padd01", "padd_kernel": "padd",
                "sc_message_split_kernel": "sc_message",
                "sc_fused_split_kernel": "sc_fused", "sc_fold_kernel": "sc_fold",
                "fr_mul_kernel": "fr_mul", "fr_addsub_kernel": "fr_addsub",
-               "fr_reduce_kernel": "fr_reduce", "fr_lane_sum_kernel": "fr_lane_sum"}
+               "fr_reduce_kernel": "fr_reduce", "fr_lane_sum_kernel": "fr_lane_sum",
+               "msm_digits_kernel": "msm_digits", "msm_pack_kernel": "msm_pack",
+               "msm_sort_gather_kernel": "msm_sort_gather",
+               "msm_walk_down_kernel": "msm_walk_down"}
 ALL_KERNELS = {**OWN_KERNELS, "vpu_chain_kernel": "vpu_chain",
                "copy_add_kernel": "copy_add"}
 
@@ -2580,6 +3009,16 @@ PROVE_CLASSES_PLAIN_FR = {"int64_add": (177.88, 68765),
                           "binary_op": (199.86, 102057),
                           "or_reduction": (36.64, 7481), "dtoh_copy": (17.27, 7481)}
 PROVE_EVENTS_PLAIN_FR, PROVE_BUSY_PLAIN_FR = 223402, 0.07474
+# The same counts before the MSM glue kernels (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md section 5): device events, copy kernels and each class
+# as (ms, launches), per MSM 2^20 and per 2^18 SNARK prove.
+GLUE_PROFILE_PR12 = {
+    "msm_2^20": {"device_events": 7462, "copy_kernels": (11.87, 2634),
+                 "int64_add": (11.80, 116), "binary_op": (15.54, 1795),
+                 "or_reduction": (4.97, 67), "dtoh_copy": (0.17, 70)},
+    "prove_2^18": {"device_events": 20672, "copy_kernels": (18.12, 5196),
+                   "int64_add": (22.62, 956), "binary_op": (32.65, 5462),
+                   "or_reduction": (9.26, 197), "dtoh_copy": (0.85, 357)}}
 
 
 def own_kernel(name: str):
@@ -2652,7 +3091,9 @@ def device_profile(fn):
         "memcpy_memset_ms": memcpy_ms, "memcpy_memset_count": memcpy_n,
         "plain_chain_classes": {k: {"ms": v[0], "launches": v[1]}
                                 for k, v in classes.items()},
-        "device_events": len(dev)}
+        "device_events": len(dev),
+        "first_device_events": [e.name[:80] for e in sorted(
+            dev, key=lambda e: e.time_range.start)[:3]]}
 
 
 def phase_profile(results, msm_in, r1cs, ck):
@@ -2663,6 +3104,7 @@ def phase_profile(results, msm_in, r1cs, ck):
     import torch
 
     from gemini_tpu_torch.curve import g1_kernels as gk
+    from gemini_tpu_torch.ops import msm_kernels as mk
     from gemini_tpu_torch.ops.msm import msm
     from gemini_tpu_torch.params import R
     from gemini_tpu_torch.relation import DummyR1csStream
@@ -2706,6 +3148,7 @@ def phase_profile(results, msm_in, r1cs, ck):
                       ("elastic_space_round_2x2^20", run_space_round),
                       ("elastic_abc_block_2^20", run_abc_block)):
         gk.reset_launches()
+        mk.reset_launches()
         t0 = time.time()
         prof = device_profile(fn)
         wall = time.time() - t0
@@ -2713,6 +3156,7 @@ def phase_profile(results, msm_in, r1cs, ck):
         if prof is None:
             prof = {"device_events": 0, "note": "the trace held no device event"}
         prof.update(wall_s_under_profiler=wall, lanes=lanes,
+                    glue_launches_counted={k: v for k, v in mk.LAUNCHES.items() if v},
                     lanes_x_ms_per_lane_2p20={
                         k: v * results[k]["ms"] / results[k]["lanes"]
                         for k, v in lanes.items() if "ms" in results.get(k, {})})
@@ -2731,6 +3175,21 @@ def phase_profile(results, msm_in, r1cs, ck):
         "fr_kernel_ms": {k: prove.get("kernel_ms", {}).get(k) for k in FR_KERNELS},
         "fr_kernel_launches": {k: prove.get("kernel_launches", {}).get(k)
                                for k in FR_KERNELS}}}))
+    log(json.dumps({"msm_glue_profile": {
+        label: {"device_events": out[label].get("device_events"),
+                "copy_kernels": {"ms": out[label].get("copy_kernels_ms"),
+                                 "launches": out[label].get("copy_kernels_count")},
+                **{cls: out[label].get("plain_chain_classes", {}).get(cls)
+                   for cls in PROFILE_CLASSES},
+                "glue_kernels": {k: {"ms": out[label].get("kernel_ms", {}).get(k),
+                                     "launches": out[label].get(
+                                         "kernel_launches", {}).get(k),
+                                     "launches_counted": out[label].get(
+                                         "glue_launches_counted", {}).get(k)}
+                                 for k in MSM_KERNELS},
+                "first_device_events": out[label].get("first_device_events"),
+                "pr12": before}
+        for label, before in GLUE_PROFILE_PR12.items()}}))
     log(json.dumps({"round_kernels_prove_2^18": {
         name: {"device_ms": prove.get("kernel_ms", {}).get(name),
                "launches": prove.get("kernel_launches", {}).get(name),
@@ -2786,12 +3245,12 @@ def phase_count_dbl(msm_in, r1cs, ck):
                 c["dbl_warps"] += int(warps.any(1).sum())
             held.clear()
 
-        def counted(p, q):
+        def counted(p, q, out=None):
             held.append([t.reshape(24, -1).clone() for t in (*p, *q)])
             c["launches"] += 1
             if sum(h[0].shape[1] for h in held) >= 1 << 20:
                 count()
-            return orig(p, q)
+            return orig(p, q, out)
 
         gk.add = counted
         try:
@@ -2848,7 +3307,7 @@ def kernel_rows(results, rates, usage):
                 r["lanes"] * ADD_WORD_PRODUCTS_23MM * 2 / IMAD_PER_S * 1e3)
         for key, v in r.items():
             if key.startswith(("ms_", "lanes_per", "psnark_", "elastic_", "float32",
-                               "glv_", "mesh_", "resident_",
+                               "glv_", "mesh_", "resident_", "jacobian_",
                                "device_ms", "library_device", "library_ms_", "bound_ms_",
                                "bound_rate", "bound_share_", "library_bound_share_")):
                 rows[-1][key] = v
@@ -2883,6 +3342,7 @@ def main() -> int:
     phase("2c group API", phase_group_api, results)
     phase("2d sumcheck kernels", phase_sumcheck_kernels, results, usage)
     phase("2e Fr kernels", phase_fr_kernels, results)
+    phase("2f MSM glue kernels", phase_msm_glue, results)
     msm_in, msm_out = phase("3 MSM", phase_msm)
     phase("4 golden", phase_golden)
     r1cs, ck, proof_18 = phase("5 projective 2^18", phase_full, results, False)

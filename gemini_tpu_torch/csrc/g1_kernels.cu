@@ -22,8 +22,11 @@
 // padd01 and add read their operands as the MSM hands them (halves of a
 // (24, W, n) tensor, stride-2 even/odd views, the SRS tree's transposed
 // halves; bool masks as they are) through a (limb, row, lane) stride
-// triple per operand, so no copy runs before them; every output is a
-// contiguous (24, n).  mont_mul and dbl take contiguous (24, n).
+// triple per operand, so no copy runs before them, and write their
+// outputs the same way (the stop-level scan's even and odd slots of one
+// buffer, ops/ec_scan.py); outputs must not overlap the operands.  The
+// bodies of padd and add are g1_core.cuh's, which the MSM walk-down
+// (msm_kernels.cu) shares.  mont_mul and dbl take contiguous (24, n).
 // One thread per lane; limbs are repacked into 12 32-bit words in
 // registers (fq.cuh).  padd and padd01 select instead of branching, so
 // their warps never diverge; add branches on rare lanes (below).
@@ -102,12 +105,13 @@
 #include <cuda_runtime.h>
 
 #include "fq.cuh"
+#include "g1_core.cuh"
 
 using fq::F;
+using g1::kThreads;
 
 namespace {
 
-constexpr int kThreads = 128;
 // Blocks of kThreads each SM must hold: the register budget (168
 // registers for padd, 128 for padd01; see the note above).
 constexpr int kPaddMinBlocks = 3;
@@ -122,106 +126,28 @@ __global__ void __launch_bounds__(kThreads)
   fq::store(out, n, j, fq::mm(fq::load(a, n, j), fq::load(b, n, j)));
 }
 
-// One operand of padd / padd01 as the caller's view lays it out: lane
-// (batch row b, column i) of limb row r at p[r * ls + b * bs + i * es]
-// (a bool mask: p[b * bs + i * es]).  Outputs are contiguous (24, n)
-// with lane j = b * cols + i.
-struct Operand {
-  const void* p;
-  long long ls, bs, es;
-};
-struct Operands {
-  Operand o[6];
-};
-
-// The lane index, read again where it is used: a value the compiler
-// cannot carry through the kernel in a register (or spill) between the
-// loads and the stores.
-__device__ __forceinline__ unsigned lane_index() {
-#ifdef __CUDA_ARCH__
-  unsigned t, c, d;
-  asm volatile("mov.u32 %0, %%tid.x; mov.u32 %1, %%ctaid.x; mov.u32 %2, %%ntid.x;"
-               : "=r"(t), "=r"(c), "=r"(d));
-  return c * d + t;
-#else
-  return blockIdx.x * blockDim.x + threadIdx.x;
-#endif
-}
-
-// Shared memory as a word source for mont_core: a value that enters the
-// last products only as a word operand (one word per CIOS step) is
-// parked there, so those products hold 36 fewer words in registers.
-// Each thread reads back only its own words: no barrier.
-struct Parked {
-  volatile uint32_t* s;  // word k at s[k * kThreads]
-  __device__ __forceinline__ uint32_t operator[](int k) const { return s[k * kThreads]; }
-};
-
-__device__ __forceinline__ Parked park(volatile uint32_t* s, const F& a) {
-#pragma unroll
-  for (int k = 0; k < fq::NW; ++k) s[k * kThreads] = a.w[k];
-  return Parked{s};
-}
-
-__device__ __forceinline__ F load_op(const Operand& o, unsigned b, unsigned i) {
-  return fq::load((const int32_t*)o.p, o.ls, (long long)b * o.bs + (long long)i * o.es);
-}
-
-__device__ __forceinline__ bool load_mask(const Operand& o, unsigned b, unsigned i) {
-  return ((const uint8_t*)o.p)[(long long)b * o.bs + (long long)i * o.es] != 0;
-}
-
-// _padd_core: the same formula, each relaxed value computed by the same
-// sequence of field ops as in the reference; independent products run in
-// another order (z loaded last) to shorten the inputs' lives.
+// g1_core.cuh's padd_core on lane j = b * cols + i of the operands, the
+// results to the same lane of the outputs.
 __global__ void __launch_bounds__(kThreads, kPaddMinBlocks)
-    padd_kernel(const Operands in, int32_t* __restrict__ ox,
-                int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-                unsigned n, unsigned cols) {
+    padd_kernel(const g1::Operands in, const g1::Outputs out, unsigned n,
+                unsigned cols) {
   unsigned j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   unsigned b = j / cols, i = j - b * cols;
-  const F x1 = load_op(in.o[0], b, i), x2 = load_op(in.o[3], b, i);
-  const F y1 = load_op(in.o[1], b, i), y2 = load_op(in.o[4], b, i);
-  F t0 = fq::rmm(x1, x2);
-  F t3 = fq::rmm(fq::radd(x1, y1), fq::radd(x2, y2));
-  const F z1 = load_op(in.o[2], b, i), z2 = load_op(in.o[5], b, i);
-  F x3 = fq::rmm(fq::radd(x1, z1), fq::radd(x2, z2));
-  F t1 = fq::rmm(y1, y2);
-  F t4 = fq::rmm(fq::radd(y1, z1), fq::radd(y2, z2));
-  F t2 = fq::rmm(z1, z2);
-  t3 = fq::rsub(fq::rsub(t3, t0), t1);  // x1y2 + x2y1
-  t4 = fq::rsub(fq::rsub(t4, t1), t2);  // y1z2 + y2z1
-  F y3 = fq::rsub(fq::rsub(x3, t0), t2);  // x1z2 + x2z1
-  t0 = fq::radd(fq::radd(t0, t0), t0);    // 3 x1x2
-  t2 = fq::rmul12(t2);                    // b3 z1z2
-  F z3 = fq::radd(t1, t2);
-  t1 = fq::rsub(t1, t2);
-  y3 = fq::rmul12(y3);  // b3 (x1z2 + x2z1)
-  j = lane_index();
-  // The same three sums of products with each pair's operands in the
-  // order that makes t1, t4, t0 word operands only (a*b + c*d is
-  // symmetric, so the integers and their reductions are the same).
   __shared__ volatile uint32_t sm[3][fq::NW][kThreads];
-  const Parked w1 = park(&sm[0][0][threadIdx.x], t1);
-  const Parked w4 = park(&sm[1][0][threadIdx.x], t4);
-  const Parked w0 = park(&sm[2][0][threadIdx.x], t0);
-  fq::store(ox, n, j, fq::rmm_add(t3, w1, fq::rneg(y3), w4));  // t3 t1 - t4 y3
-  fq::store(oy, n, j, fq::rmm_add(z3, w1, y3, w0));            // t1 z3 + y3 t0
-  fq::store(oz, n, j, fq::rmm_add(z3, w4, t3, w0));            // z3 t4 + t0 t3
+  g1::padd_core(g1::LaneLoad{in, b, i}, g1::LaneStore{out, cols}, &sm[0][0][threadIdx.x]);
 }
 
 // _padd01_core: z1, z2 in {0, 1} from the masks; dead lanes are (0 : y : 0).
 __global__ void __launch_bounds__(kThreads, kPadd01MinBlocks)
-    padd01_kernel(const Operands in, int32_t* __restrict__ ox,
-                  int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-                  unsigned n, unsigned cols) {
+    padd01_kernel(const g1::Operands in, const g1::Outputs out, unsigned n,
+                  unsigned cols) {
   unsigned j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   unsigned b = j / cols, i = j - b * cols;
-  const F x1 = load_op(in.o[0], b, i), y1 = load_op(in.o[1], b, i);
-  const F x2 = load_op(in.o[3], b, i), y2 = load_op(in.o[4], b, i);
-  const bool live1 = load_mask(in.o[2], b, i), live2 = load_mask(in.o[5], b, i);
+  const F x1 = g1::load_op(in.o[0], b, i), y1 = g1::load_op(in.o[1], b, i);
+  const F x2 = g1::load_op(in.o[3], b, i), y2 = g1::load_op(in.o[4], b, i);
+  const bool live1 = g1::load_mask(in.o[2], b, i), live2 = g1::load_mask(in.o[5], b, i);
   const F zero = fq::zero();
   F t0 = fq::rmm(x1, x2);
   F t1 = fq::rmm(y1, y2);
@@ -236,26 +162,10 @@ __global__ void __launch_bounds__(kThreads, kPadd01MinBlocks)
   F z3 = fq::radd(t1, twelve);
   t1 = fq::rsub(t1, twelve);
   y3 = fq::rmul12(y3);  // b3 (x1z2 + x2z1)
-  j = lane_index();
-  fq::store(ox, n, j, fq::rmm_sub(t3, t1, t4, y3));
-  fq::store(oy, n, j, fq::rmm_add(t1, z3, y3, t0));
-  fq::store(oz, n, j, fq::rmm_add(z3, t4, t0, t3));
-}
-
-// _dbl_core: dbl-2009-l.  Maps the identity (z = 0) to z3 = 0.
-__device__ __forceinline__ void dbl_core(const F& x, const F& y, const F& z,
-                                         F& x3, F& y3, F& z3) {
-  F a = fq::mm(x, x);
-  F b = fq::mm(y, y);
-  F c = fq::mm(b, b);
-  F xb = fq::fadd(x, b);
-  F d = fq::fdbl(fq::fsub(fq::mm(xb, xb), fq::fadd(a, c)));
-  F e = fq::fadd(fq::fdbl(a), a);
-  F f = fq::mm(e, e);
-  x3 = fq::fsub(f, fq::fdbl(d));
-  F c8 = fq::fdbl(fq::fdbl(fq::fdbl(c)));
-  y3 = fq::fsub(fq::mm(e, fq::fsub(d, x3)), c8);
-  z3 = fq::fdbl(fq::mm(y, z));
+  const g1::LaneStore put{out, cols};
+  put(0, fq::rmm_sub(t3, t1, t4, y3));
+  put(1, fq::rmm_add(t1, z3, y3, t0));
+  put(2, fq::rmm_add(z3, t4, t0, t3));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -265,131 +175,35 @@ __global__ void __launch_bounds__(kThreads)
   long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   F x3, y3, z3;
-  dbl_core(fq::load(px, n, j), fq::load(py, n, j), fq::load(pz, n, j), x3, y3, z3);
+  g1::dbl_core(fq::load(px, n, j), fq::load(py, n, j), fq::load(pz, n, j), x3, y3, z3);
   fq::store(ox, n, j, x3);
   fq::store(oy, n, j, y3);
   fq::store(oz, n, j, z3);
 }
 
-// Stores lane j's point from operands x, y, z, as read.
-__device__ __forceinline__ void store_point(const Operand& x, const Operand& y,
-                                            const Operand& z, unsigned b, unsigned i,
-                                            int32_t* __restrict__ ox,
-                                            int32_t* __restrict__ oy,
-                                            int32_t* __restrict__ oz, unsigned n,
-                                            unsigned j) {
-  fq::store(ox, n, j, load_op(x, b, i));
-  fq::store(oy, n, j, load_op(y, b, i));
-  fq::store(oz, n, j, load_op(z, b, i));
-}
-
-// _add_core (add-2007-bl; the doubling where h = r = 0; p = O -> q;
-// q = O -> p, both O: p), redesigned (see the header): relaxed products,
-// each output canonicalised and stored as soon as it is known; then the
-// lanes whose result is not the add's store again: the doubling (in
-// warps that hold such a lane) and the identity lanes, from operands
-// read again.
+// g1_core.cuh's add_core on lane j = b * cols + i: the first reads with
+// the lane index held, the doubling and identity lanes' reads and every
+// store with it read again.
 __global__ void __launch_bounds__(kThreads, kAddMinBlocks)
-    add_kernel(const Operands in, int32_t* __restrict__ ox,
-               int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-               unsigned n, unsigned cols) {
+    add_kernel(const g1::Operands in, const g1::Outputs out, unsigned n,
+               unsigned cols) {
   unsigned j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   unsigned b = j / cols, i = j - b * cols;
   __shared__ volatile uint32_t sm[4][fq::NW][kThreads];
-  F r, u1, h;
-  bool p_inf, q_inf;
-  const Parked zz = {&sm[2][0][threadIdx.x]}, s1 = {&sm[3][0][threadIdx.x]};
-  {
-    const F z1 = load_op(in.o[2], b, i), z2 = load_op(in.o[5], b, i);
-    p_inf = fq::is_zero(z1);
-    q_inf = fq::is_zero(z2);
-    park(zz.s, fq::rmm(z1, z2));
-    const Parked z1z1 = park(&sm[0][0][threadIdx.x], fq::rmm(z1, z1));
-    const Parked z2z2 = park(&sm[1][0][threadIdx.x], fq::rmm(z2, z2));
-    const F y1z2z2z2 = fq::rmm(fq::rmm(load_op(in.o[1], b, i), z2), z2z2);  // s1
-    park(s1.s, y1z2z2z2);
-    r = fq::rmm(fq::rmm(load_op(in.o[4], b, i), z1), z1z1);  // s2 = y2 z1^3
-    r = fq::rsub(r, y1z2z2z2);
-    r = fq::radd(r, r);                                      // 2 (s2 - s1)
-    u1 = fq::rmm(load_op(in.o[0], b, i), z2z2);              // x1 z2^2
-    h = fq::rsub(fq::rmm(load_op(in.o[3], b, i), z1z1), u1);  // u2 - u1
-  }
-  const bool same = fq::is_zero_rel(h) && fq::is_zero_rel(r);
-  const F h2 = fq::radd(h, h);
-  j = lane_index();
-  fq::store(oz, n, j, fq::canon(fq::rmm(h2, zz)));  // 2 z1 z2 h
-  const F ii = fq::rmm(h2, h2);                     // I = (2h)^2
-  const F jj = fq::rmm(h, ii);                      // J = h I
-  const F v = fq::rmm(u1, ii);                      // V = u1 I
-  const F x3 = fq::rsub(fq::rsub(fq::rmm(r, r), jj), fq::radd(v, v));
-  fq::store(ox, n, j, fq::canon(x3));
-  // y3 = r (V - x3) - 2 s1 J, one reduction; V - x3 and s1 enter as
-  // word operands only.
-  const Parked w = park(&sm[0][0][threadIdx.x], fq::rsub(v, x3));
-  fq::store(oy, n, j, fq::canon(fq::rmm_add(r, w, fq::rneg(fq::radd(jj, jj)), s1)));
-
-  const bool needs_dbl = same && !p_inf && !q_inf;
-  if (__any_sync(__activemask(), needs_dbl)) {  // uniform in the warp
-    j = lane_index();
-    b = j / cols;
-    i = j - b * cols;
-    F xd, yd, zd;
-    dbl_core(load_op(in.o[0], b, i), load_op(in.o[1], b, i), load_op(in.o[2], b, i),
-             xd, yd, zd);
-    if (needs_dbl) {
-      fq::store(ox, n, j, xd);
-      fq::store(oy, n, j, yd);
-      fq::store(oz, n, j, zd);
-    }
-  }
-  if (p_inf || q_inf) {
-    j = lane_index();
-    b = j / cols;
-    i = j - b * cols;
-    if (q_inf)
-      store_point(in.o[0], in.o[1], in.o[2], b, i, ox, oy, oz, n, j);
-    else
-      store_point(in.o[3], in.o[4], in.o[5], b, i, ox, oy, oz, n, j);
-  }
+  g1::add_core(g1::LaneLoad{in, b, i}, g1::LaneReload{in, cols},
+               g1::LaneStore{out, cols}, &sm[0][0][threadIdx.x]);
 }
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
-// Threads per block for a padd/padd01 launch of n lanes: 128, or fewer
-// (a multiple of 32) when n < 128 * SMs, so that a small launch still
-// puts one block on each SM instead of leaving SMs idle.
-int threads_for(long long n) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
-  long long per_sm = (n + sms - 1) / sms;
-  long long t = (per_sm + 31) / 32 * 32;
-  return (int)(t < 32 ? 32 : t > kThreads ? kThreads : t);
-}
-
-// desc: 6 operands x (pointer, limb stride, batch stride, lane stride).
-Operands operands(const long long* desc) {
-  Operands in;
-  for (int k = 0; k < 6; ++k) {
-    in.o[k].p = (const void*)desc[4 * k];
-    in.o[k].ls = desc[4 * k + 1];
-    in.o[k].bs = desc[4 * k + 2];
-    in.o[k].es = desc[4 * k + 3];
-  }
-  return in;
-}
-
 }  // namespace
 
 // C interface for ctypes: device pointers, the lane count and the CUDA
-// stream (padd/padd01: operand descriptors and the lanes per batch row,
-// n = rows * cols <= 2^31; the others: contiguous int32 tensors).  Each
-// returns cudaGetLastError() right after the launch (0 = launched).
+// stream (padd/padd01/add: operand and output descriptors and the lanes
+// per batch row, n = rows * cols <= 2^31; the others: contiguous int32
+// tensors).  Each returns cudaGetLastError() right after the launch (0 =
+// launched).
 
 extern "C" int g1_mont_mul(const int32_t* a, const int32_t* b, int32_t* out,
                            long long n, void* stream) {
@@ -398,30 +212,30 @@ extern "C" int g1_mont_mul(const int32_t* a, const int32_t* b, int32_t* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int g1_padd(const long long* desc, int32_t* ox, int32_t* oy,
-                       int32_t* oz, long long n, long long cols, void* stream) {
+extern "C" int g1_padd(const long long* desc, const long long* out, long long n,
+                       long long cols, void* stream) {
   if (n <= 0) return 0;
-  int t = threads_for(n);
+  int t = g1::threads_for(n);
   padd_kernel<<<(unsigned)((n + t - 1) / t), t, 0, (cudaStream_t)stream>>>(
-      operands(desc), ox, oy, oz, (unsigned)n, (unsigned)cols);
+      g1::operands(desc), g1::outputs(out), (unsigned)n, (unsigned)cols);
   return (int)cudaGetLastError();
 }
 
-extern "C" int g1_padd01(const long long* desc, int32_t* ox, int32_t* oy,
-                         int32_t* oz, long long n, long long cols, void* stream) {
+extern "C" int g1_padd01(const long long* desc, const long long* out, long long n,
+                         long long cols, void* stream) {
   if (n <= 0) return 0;
-  int t = threads_for(n);
+  int t = g1::threads_for(n);
   padd01_kernel<<<(unsigned)((n + t - 1) / t), t, 0, (cudaStream_t)stream>>>(
-      operands(desc), ox, oy, oz, (unsigned)n, (unsigned)cols);
+      g1::operands(desc), g1::outputs(out), (unsigned)n, (unsigned)cols);
   return (int)cudaGetLastError();
 }
 
-extern "C" int g1_add(const long long* desc, int32_t* ox, int32_t* oy,
-                      int32_t* oz, long long n, long long cols, void* stream) {
+extern "C" int g1_add(const long long* desc, const long long* out, long long n,
+                      long long cols, void* stream) {
   if (n <= 0) return 0;
-  int t = threads_for(n);
+  int t = g1::threads_for(n);
   add_kernel<<<(unsigned)((n + t - 1) / t), t, 0, (cudaStream_t)stream>>>(
-      operands(desc), ox, oy, oz, (unsigned)n, (unsigned)cols);
+      g1::operands(desc), g1::outputs(out), (unsigned)n, (unsigned)cols);
   return (int)cudaGetLastError();
 }
 

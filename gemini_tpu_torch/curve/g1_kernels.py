@@ -22,8 +22,10 @@ output; `padd` takes inputs < 2p, returns outputs < 2p, identity
 {0, 1} and dead lanes (0 : y : 0); `add` and `double` take Jacobian
 (x, y, z) inputs < p, return outputs < p, identity z = 0.  The padd,
 padd01 and add kernels read their operands as laid out, views included
-(`lane_strides`), and bool masks as they are; mont_mul and dbl take
-contiguous copies.  Outputs are contiguous.
+(`lane_strides`), and bool masks as they are, and write into `out`
+views the same way when given (else fresh contiguous outputs; outputs
+must not overlap the operands); mont_mul and dbl take contiguous copies
+and return contiguous outputs.
 
 `LAUNCHES` counts kernel launches and `LANES` the lanes they covered
 (the plain path counts neither), so a run can show that the main path
@@ -55,13 +57,14 @@ def reset_launches() -> None:
 
 STRIDED = ("padd", "padd01", "add")  # kernels that read their operands' strides
 _Desc = ctypes.c_longlong * 24  # 6 operands x (pointer, 3 strides)
+_OutDesc = ctypes.c_longlong * 12  # 3 outputs x (pointer, 3 strides)
 
 
 def _bind(lib):
     p, n = ctypes.c_void_p, ctypes.c_longlong
     lib.g1_mont_mul.argtypes = [p, p, p, n, p]
     for fn in (lib.g1_padd, lib.g1_padd01, lib.g1_add):
-        fn.argtypes = [p] * 4 + [n, n, p]
+        fn.argtypes = [p, p, n, n, p]
     lib.g1_dbl.argtypes = [p] * 6 + [n, p]
     for fn in (lib.g1_mont_mul, lib.g1_padd, lib.g1_padd01, lib.g1_add,
                lib.g1_dbl):
@@ -111,25 +114,37 @@ def _check(name, tensors, rows):
     return dev, batch
 
 
-def _launch(name, fn, ins, n_out, rows):
+def _launch(name, fn, ins, n_out, rows, out=None):
     """Launch `fn` on `ins` ((rows, *batch) int32 coordinates; rows = 0 for
-    a mask); returns n_out contiguous (24, *batch) outputs.  padd, padd01
-    and add take their operands as laid out (lane_strides); the other
-    kernels take contiguous tensors."""
+    a mask); returns n_out (24, *batch) outputs: `out` (padd, padd01 and
+    add: views written as laid out) or fresh contiguous tensors.  padd,
+    padd01 and add take their operands as laid out (lane_strides); the
+    other kernels take contiguous tensors."""
     dev, batch = _check(name, ins, rows)
-    outs = [torch.empty((L, *batch), dtype=I32, device=dev) for _ in range(n_out)]
+    if out is None:
+        outs = [torch.empty((L, *batch), dtype=I32, device=dev) for _ in range(n_out)]
+    else:
+        if name not in STRIDED:
+            raise ValueError(f"{name}: takes no output views")
+        outs = list(out)
+        _check(name, outs, [L] * n_out)
+        if tuple(outs[0].shape[1:]) != batch:
+            raise ValueError(f"{name}: outputs {tuple(outs[0].shape)} for operands "
+                             f"of batch {batch}")
     n = outs[0].numel() // L
     if n == 0:
         return outs
     if name in STRIDED:
         if n >= 1 << 31:
             raise ValueError(f"{name}: {n} lanes, at most 2^31 - 1 per launch")
-        desc = []
+        desc, odesc = [], []
         for t, r in zip(ins, rows):
             desc.append(t.data_ptr())
             desc.extend(lane_strides(t, r))
-        args = [_Desc(*desc),
-                *(o.data_ptr() for o in outs), n, batch[-1]]
+        for o in outs:
+            odesc.append(o.data_ptr())
+            odesc.extend(lane_strides(o, L))
+        args = [_Desc(*desc), _OutDesc(*odesc), n, batch[-1]]
     else:
         args = [t.data_ptr() for t in ins + outs] + [n]
     lib = cuda_lib.library("g1_kernels", _bind)
@@ -338,44 +353,54 @@ def mont_mul(a, b):
     return out.reshape(shape)
 
 
-def padd(p, q):
+def _plain_out(outs, shape, out):
+    """A plain version's flat outputs as (24, *batch), written into `out`
+    when given."""
+    outs = tuple(o.reshape(shape) for o in outs)
+    if out is None:
+        return outs
+    for o, r in zip(out, outs):
+        o.copy_(r)
+    return tuple(out)
+
+
+def padd(p, q, out=None):
     """Complete projective add: p, q are (x, y, z) tuples of (24, *batch)
     coords; identity is (0 : y : 0).  Relaxed: outputs < 2p.  The kernel
     reads the operands as laid out (views included, lane_strides) and
-    returns contiguous (24, *batch) outputs."""
+    writes `out`, three (24, *batch) views, as laid out (fresh contiguous
+    outputs without it)."""
     shape = p[0].shape
     if p[0].device.type == "cpu":
-        outs = padd_plain(*(_flat(t) for t in (*p, *q)))
-        return tuple(o.reshape(shape) for o in outs)
-    return tuple(_launch("padd", "g1_padd", [*p, *q], 3, [L] * 6))
+        return _plain_out(padd_plain(*(_flat(t) for t in (*p, *q))), shape, out)
+    return tuple(_launch("padd", "g1_padd", [*p, *q], 3, [L] * 6, out))
 
 
-def padd01(p, q):
+def padd01(p, q, out=None):
     """Complete projective add for operands with z in {0, 1}: p, q are
     (x, y, mask) with coords (24, *batch) and mask (*batch) bool/int
     (nonzero = live, zero = the identity (0 : y : 0)).  The kernel reads
-    coordinates and bool masks as laid out; other mask types are
-    converted first."""
+    coordinates and bool masks as laid out (other mask types are
+    converted first) and writes `out` as padd does."""
     shape = p[0].shape
     m1, m2 = (m if m.dtype == torch.bool else m != 0 for m in (p[2], q[2]))
     if p[0].device.type == "cpu":
         x1, y1, x2, y2 = (_flat(t) for t in (p[0], p[1], q[0], q[1]))
-        outs = padd01_plain(x1, y1, m1.reshape(-1), x2, y2, m2.reshape(-1))
-        return tuple(o.reshape(shape) for o in outs)
+        return _plain_out(padd01_plain(x1, y1, m1.reshape(-1), x2, y2, m2.reshape(-1)),
+                          shape, out)
     return tuple(_launch("padd01", "g1_padd01", [p[0], p[1], m1, q[0], q[1], m2],
-                         3, [L, L, 0, L, L, 0]))
+                         3, [L, L, 0, L, L, 0], out))
 
 
-def add(p, q):
+def add(p, q, out=None):
     """Complete Jacobian add: p, q are (x, y, z) tuples of (24, *batch)
     canonical coords; identity z = 0.  Canonical outputs.  The kernel
     reads the operands as laid out (views included, lane_strides) and
-    returns contiguous (24, *batch) outputs."""
+    writes `out` as padd does."""
     shape = p[0].shape
     if p[0].device.type == "cpu":
-        outs = add_plain(*(_flat(t) for t in (*p, *q)))
-        return tuple(o.reshape(shape) for o in outs)
-    return tuple(_launch("add", "g1_add", [*p, *q], 3, [L] * 6))
+        return _plain_out(add_plain(*(_flat(t) for t in (*p, *q))), shape, out)
+    return tuple(_launch("add", "g1_add", [*p, *q], 3, [L] * 6, out))
 
 
 def double(p):

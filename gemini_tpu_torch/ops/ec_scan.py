@@ -7,34 +7,42 @@ curve/g1_kernels.py, through a `combiner`: by default the projective
 `padd` (identity (0 : y : 0)) and `padd01` at level 0; with the
 Jacobian `add_points` (identity z = 0) the MSM's Jacobian configuration
 (ops/msm.py `_use_proj`).  z in {0, 1}, (0 : y : 0) and the lifted
-level-0 operands mean the same point in both coordinate systems.
+level-0 operands mean the same point in both coordinate systems.  A
+combiner is called as combiner(a, b, out=None): with `out`, three
+(L, *batch) views, the kernel writes its sums there (the scan's even and
+odd slots, the reduce chain's stacked levels), so no copy joins them.
+
+On CUDA tensors the walk-down of `prefix_sums_at` is one launch of the
+msm_walk_down kernel (ops/msm_kernels.py), which adds with the code of
+padd or add; `_walk_down_plain` is its plain version, for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..curve import g1, g1_kernels
+from ..curve import g1_kernels
 from ..fields.fp import FQ
+from . import msm_kernels
 
 L = FQ.n_limbs
 
 
-def add_points(a, b):
+def add_points(a, b, out=None):
     """Complete Jacobian add of two (x, y, z) tuples through the add
-    kernel (g1.add); canonical in, canonical out."""
-    return tuple(g1.add(g1.JPoint(*a), g1.JPoint(*b)))
+    kernel (curve/g1_kernels.add); canonical in, canonical out."""
+    return g1_kernels.add(a, b, out)
 
 
-def padd_points(a, b):
+def padd_points(a, b, out=None):
     """Complete projective add (RCB) through the padd kernel."""
-    return g1_kernels.padd(a, b)
+    return g1_kernels.padd(a, b, out)
 
 
-def padd01_points(a, b):
+def padd01_points(a, b, out=None):
     """Level-0 specialization: both operands (x, y, mask) with z in
     {0, 1} — 9 Montgomery products instead of 12."""
-    return g1_kernels.padd01(a, b)
+    return g1_kernels.padd01(a, b, out)
 
 
 def _lift01(x, y, m):
@@ -43,44 +51,45 @@ def _lift01(x, y, m):
     return x, y, torch.where(m.unsqueeze(0), one, torch.zeros_like(one))
 
 
-def _eo_split(x, y, z):
-    def eo(a):
-        t = a.reshape(*a.shape[:-1], a.shape[-1] // 2, 2)
-        return t[..., 0], t[..., 1]
-
-    (xe, xo), (ye, yo), (ze, zo) = eo(x), eo(y), eo(z)
-    return (xe, ye, ze), (xo, yo, zo)
+def _empty_points(like, n: int):
+    """One (3, L, *batch, n) int32 buffer for the (x, y, z) of n points."""
+    return torch.empty((3, *like.shape[:-1], n), dtype=like.dtype, device=like.device)
 
 
-def _shift_right(p):
-    """[s0..s_{m-1}] -> [junk, s0..s_{m-2}] (slot 0 discarded later)."""
-    return tuple(torch.cat([a[..., :1], a[..., :-1]], dim=-1) for a in p)
+def _scan_into(s, out, combiner):
+    """Inclusive scan of the points stacked in s (3, L, *batch, n) along
+    the last axis, written into out (the same shape, another buffer):
+    each level's adds write straight into out's odd slots (the scan of
+    the pairs' sums, by recursion) and even slots 1.. (scanned[i - 1] +
+    evens[i]), and slot 0 takes e0 (one copy a level).  These are
+    gemini_tpu's inclusive_scan_ec's adds with their operands in the same
+    order, so the relaxed limbs come out the same."""
+    n = s.shape[-1]
+    evens, odds = s[..., 0::2], s[..., 1::2]
+    out_e, out_o = out[..., 0::2], out[..., 1::2]
+    if n == 2:
+        combiner(tuple(evens), tuple(odds), out=tuple(out_o))
+    else:
+        reduced = _empty_points(s[0], n // 2)
+        combiner(tuple(evens), tuple(odds), out=tuple(reduced))
+        _scan_into(reduced, out_o, combiner)
+        combiner(tuple(out_o[..., :-1]), tuple(evens[..., 1:]),
+                 out=tuple(out_e[..., 1:]))
+    out[..., 0].copy_(s[..., 0])
 
 
-def _interleave_first(evens_first, combined, scanned):
-    """out[0::2] = [e0, combined[1:]]; out[1::2] = scanned."""
-    out = []
-    for e0, c, s in zip(evens_first, combined, scanned):
-        even_out = torch.cat([e0[..., :1], c[..., 1:]], dim=-1)
-        st = torch.stack([even_out, s], dim=-1)
-        out.append(st.reshape(*st.shape[:-2], -1))
-    return tuple(out)
-
-
-def inclusive_scan_ec(elems, combiner=padd_points):
-    """Inclusive scan of points (x, y, z) (L, *batch, n) along the LAST
-    axis under `combiner`; n a power of two."""
-    n = elems[0].shape[-1]
+def inclusive_scan_ec(s, combiner=padd_points):
+    """Inclusive scan of points along the LAST axis under `combiner`, n a
+    power of two: `s` holds the (x, y, z) of (L, *batch, n) stacked in one
+    (3, L, *batch, n) tensor (prefix_sums_at's reduce chain writes them
+    so).  Returns (x, y, z), views of one buffer."""
+    n = s.shape[-1]
     assert n & (n - 1) == 0
     if n == 1:
-        return elems
-    evens, odds = _eo_split(*elems)
-    reduced = combiner(evens, odds)  # scan values at odd positions
-    scanned = inclusive_scan_ec(reduced, combiner=combiner)
-    if n == 2:
-        return _interleave_first(evens, evens, scanned)
-    combined = combiner(_shift_right(scanned), evens)
-    return _interleave_first(evens, combined, scanned)
+        return tuple(s)
+    out = torch.empty_like(s)
+    _scan_into(s, out, combiner)
+    return tuple(out)
 
 
 def tree_reduce(elems, combiner=padd_points):
@@ -156,20 +165,35 @@ def prefix_sums_at(x, y, mask, pos, combiner=padd_points,
 
     `combiner` adds general operands, `combiner01` two (x, y, mask)
     level-0 operands.  The empty-position identity (0 : 1_mont : 0) has
-    z = 0, the identity of both coordinate systems.
+    z = 0, the identity of both coordinate systems.  On CUDA tensors
+    the walk-down is one msm_walk_down launch.
     """
+    levels, scanned = reduce_and_scan(x, y, mask, pos.shape[-1], combiner,
+                                      combiner01, rev_bits)
+    if pos.is_cuda:
+        return msm_kernels.walk_down(pos, scanned, levels, rev_bits,
+                                     _walk_down_proj(combiner))
+    return _walk_down_plain(pos, scanned, levels, rev_bits, combiner)
+
+
+def reduce_and_scan(x, y, mask, m: int, combiner=padd_points,
+                    combiner01=padd01_points, rev_bits: int = 0):
+    """prefix_sums_at up to its walk-down, for m positions: the reduce
+    chain's kept levels [(x, y, z-or-mask, is01)], the lanes first, and
+    the stop level's inclusive scan (x, y, z)."""
     n = x.shape[-1]
     assert n & (n - 1) == 0
-    m = pos.shape[-1]
     s_stop = 1
     while s_stop < m and s_stop < n:
         s_stop *= 2
     if rev_bits:
         assert rev_bits == bitrev_levels(n, m), (rev_bits, n, m)
 
-    # Reduce chain (keeping each level for the walk-down).
+    # Reduce chain (keeping each level for the walk-down), each level's
+    # sums written into one (3, L, *batch, n/2) buffer.
     levels = []  # (x, y, z-or-mask, is01)
     cx, cy, cz = x, y, mask
+    stacked = None
     is01 = True
     while cx.shape[-1] > s_stop:
         levels.append((cx, cy, cz, is01))
@@ -180,14 +204,37 @@ def prefix_sums_at(x, y, mask, pos, combiner=padd_points,
         else:
             ev = (cx[..., 0::2], cy[..., 0::2], cz[..., 0::2])
             od = (cx[..., 1::2], cy[..., 1::2], cz[..., 1::2])
-        cx, cy, cz = (combiner01 if is01 else combiner)(ev, od)
+        stacked = _empty_points(cx, cx.shape[-1] // 2)
+        (combiner01 if is01 else combiner)(ev, od, out=tuple(stacked))
+        cx, cy, cz = stacked
         is01 = False
 
     # Full inclusive prefix scan at the stop level.
     if is01:
-        cx, cy, cz = _lift01(cx, cy, cz)
-    sx, sy, sz = inclusive_scan_ec((cx, cy, cz), combiner=combiner)
+        stacked = torch.stack(_lift01(cx, cy, cz))
+    return levels, inclusive_scan_ec(stacked, combiner=combiner)
 
+
+def _walk_down_proj(combiner) -> bool:
+    """The walk-down kernel's add: padd for padd_points, the Jacobian add
+    for add_points; it takes no other combiner."""
+    if combiner is padd_points:
+        return True
+    if combiner is add_points:
+        return False
+    raise ValueError(f"the walk-down kernel adds with padd_points or add_points, "
+                     f"not {combiner!r}")
+
+
+def _walk_down_plain(pos, scanned, levels, rev_bits, combiner):
+    """The walk-down of prefix_sums_at (the plain version of the
+    msm_walk_down kernel): the scan's value at each position's top-level
+    index ((0 : 1_mont : 0) where it is -1), then per level, from the stop
+    level down, + (x or 0, y, z or 0) of the level's lane at the
+    position's stored index, x and z kept where the position is even
+    (y unmasked: the complete formulas scale their output by the
+    identity operand's y)."""
+    sx, sy, sz = scanned
     poss = [pos]
     for _ in levels:
         poss.append((poss[-1] - 1) >> 1)

@@ -15,6 +15,14 @@ when GEMINI_TPU_PROJ=0 (`_use_proj`).  Digits are SIGNED (magnitude
 <= 2^(c-1); negative digits negate the point during the sort).  The
 final Horner combine over the O(W) window totals runs on the host.
 
+The glue between those launches is on the card too (ops/msm_kernels.py):
+the digits of all windows and the sort keys in one msm_digits launch per
+MSM, and per chunk, after torch.sort and before torch.searchsorted, one
+msm_sort_gather launch and one msm_walk_down launch, and the points
+packed for those gathers by one msm_pack launch per MSM.  The plain
+versions (`_digits_plain`, `_pack_plain`, `_sort_gather_plain`,
+ec_scan's `_walk_down_plain`) run on CPU tensors only.
+
 Scalars enter in canonical (non-Montgomery) limb form, reduced (< R);
 points as affine with infinity masks.  Small MSMs (n <= 4096) run on
 the host Pippenger only when the tensors lie on the CPU; on CUDA every
@@ -39,7 +47,7 @@ from ..curve.g1 import APoint, JPoint
 from ..fields import fp
 from ..fields.fp import FQ, FR
 from ..params import R as _R_FR
-from . import ec_scan
+from . import ec_scan, msm_kernels
 from . import scan as scan_util
 
 LIMB_BITS = fp.LIMB_BITS
@@ -112,7 +120,16 @@ def extract_signed_digits(scalars: torch.Tensor, c: int,
                           n_bits: int = N_BITS):
     """(L, N) canonical limbs (< R) -> (mags (W, N) int64 in
     [0, 2^(c-1)], negs (W, N) bool): d' = raw + carry; if d' > 2^(c-1)
-    emit d' - 2^c and carry 1."""
+    emit d' - 2^c and carry 1.  CUDA tensors: one msm_digits launch, the
+    digits read back from its keys mag << 2 | neg << 1."""
+    if scalars.is_cuda:
+        key = msm_kernels.digits(scalars, c, -(-n_bits // c))
+        return key >> 2, (key & 2).bool()
+    return _digits_plain(scalars, c, n_bits)
+
+
+def _digits_plain(scalars: torch.Tensor, c: int, n_bits: int = N_BITS):
+    """extract_signed_digits' plain version (the msm_digits kernel's)."""
     raw = extract_digits(scalars, c, n_bits)
     half, full = 1 << (c - 1), 1 << c
     mags, negs = [], []
@@ -124,6 +141,23 @@ def extract_signed_digits(scalars: torch.Tensor, c: int,
         negs.append(neg)
         carry = neg.to(torch.int64)
     return torch.stack(mags, dim=0), torch.stack(negs, dim=0)
+
+
+def digit_keys(scalars: torch.Tensor, c: int, n_bits: int, pinf, flip=None):
+    """The window chunks' sort keys of (L, N) canonical scalars:
+    (W, N) int64 mag << 2 | (neg ^ flip) << 1 | inf per window and lane
+    (pinf, flip: (N,) bool; `flip`, the GLV component's sign, optional).
+    The flags ride in the key's low bits, so one sort orders each window
+    by magnitude.  CUDA tensors: one msm_digits launch."""
+    if scalars.is_cuda:
+        return msm_kernels.digits(scalars, c, -(-n_bits // c), pinf, flip)
+    return _keys_plain(*_digits_plain(scalars, c, n_bits), pinf, flip)
+
+
+def _keys_plain(mags, negs, pinf, flip=None):
+    if flip is not None:
+        negs = negs ^ flip
+    return (mags << 2) | (negs.to(torch.int64) << 1) | pinf.to(torch.int64)
 
 
 def _horner_host(totals_jac, c: int, device) -> JPoint:
@@ -149,30 +183,58 @@ def _jpoint_from_host(acc, device) -> JPoint:
     return JPoint(ap.x, ap.y, one)
 
 
-def _sort_gather_proj(px, py, pinf, mags, negs, rev_bits: int = 0):
+def pack_points(px, py):
+    """(24, N) x and y -> (N, 24) int32 rows, x's 12 words then y's, word
+    k = limb 2k | limb 2k+1 << 16: once per MSM, so each chunk's gather
+    reads a point's 96 contiguous bytes (gemini_tpu's `_pack_xy` packs
+    x and y into one array for the same reason, as limb rows).  CUDA
+    tensors: one msm_pack launch."""
+    if px.is_cuda:
+        return msm_kernels.pack(px, py)
+    return _pack_plain(px, py)
+
+
+def _pack_plain(px, py):
+    """pack_points' plain version (the msm_pack kernel's)."""
+    words = [(t[0::2].to(torch.int64) | (t[1::2].to(torch.int64) << 16))
+             for t in (px, py)]
+    return torch.cat(words).T.to(torch.int32).contiguous()
+
+
+def _sort_gather_proj(pp, key, rev_bits: int = 0):
     """Sort each window's points by digit magnitude, emitting FLIPPED
     (descending) (x, y, mask) for the padd01 level 0 plus the ASCENDING
-    sorted digits (for the boundary positions).  One key sort: the
-    neg/inf flags ride in the key's low bits (any order within a digit
-    group is valid — the scan is a sum); the order array is flipped and
-    bit-reversed before the one coordinate gather.  Dead lanes
-    (infinity or digit 0) become the identity (0 : y : 0), y nonzero;
-    negative digits negate y."""
-    Wc, n = mags.shape
-    key = (mags << 2) | (negs.to(torch.int64) << 1) | pinf.to(torch.int64)
+    sorted digits (for the boundary positions).  pp: the packed points
+    (pack_points).  One key sort (the neg/inf flags ride in the key's
+    low bits, digit_keys; any order within a digit group is valid — the
+    scan is a sum), then on CUDA one msm_sort_gather launch for the
+    rest."""
     skey, order = torch.sort(key, dim=1)
+    if key.is_cuda:
+        return msm_kernels.sort_gather(pp, skey, order, rev_bits)
+    return _sort_gather_plain(pp, skey, order, rev_bits)
+
+
+def _sort_gather_plain(pp, skey, order, rev_bits: int = 0):
+    """_sort_gather_proj after the sort (the msm_sort_gather kernel's
+    plain version): the order array is flipped and bit-reversed before
+    the one gather of packed rows.  Dead lanes (infinity or digit 0)
+    become the identity (0 : y : 0), y nonzero; negative digits negate
+    y."""
+    Wc, n = skey.shape
     order_f = order.flip(1)
     skey_f = skey.flip(1)
     if rev_bits:
         order_f = ec_scan.partial_bitrev_last(order_f, rev_bits)
         skey_f = ec_scan.partial_bitrev_last(skey_f, rev_bits)
-    gx = px[:, order_f]  # (24, Wc, n)
-    gy = py[:, order_f]
+    g = pp[order_f].to(torch.int64).movedim(-1, 0)  # (24, Wc, n) words
+    limbs = torch.stack([g & 0xFFFF, (g >> 16) & 0xFFFF], dim=1).reshape(48, Wc, n)
+    gx, gy = limbs[:24].to(torch.int32), limbs[24:].to(torch.int32)
     sd = skey >> 2  # ascending magnitudes
     sneg = ((skey_f >> 1) & 1).bool()
     ginf = (skey_f & 1).bool()
     dead = ginf | (skey_f >> 2 == 0)
-    dev = px.device
+    dev = pp.device
     x = fp.select(dead, FQ.zeros((Wc, n), dev), gx)
     y = fp.select(sneg, fp.neg(FQ, gy), gy)
     y = fp.select(ginf, FQ.ones_mont((Wc, n), dev), y)
@@ -182,11 +244,12 @@ def _sort_gather_proj(px, py, pinf, mags, negs, rev_bits: int = 0):
 def _proj_to_jacobian(x, y, z):
     """(X : Y : Z) -> Jacobian (XZ, YZ^2, Z); inputs arrive relaxed
     (< 2p) from the padd pipeline: the mont_mul kernel canonicalizes the
-    products, the add of zero canonicalizes z."""
+    products, and z as its product with 1_mont (z R R^-1 = z mod p, the
+    limbs of fp.add(z, 0)), so no Fq additive op runs on the card."""
     xz = fp.mont_mul(FQ, x, z)
     z2 = fp.mont_mul(FQ, z, z)
     yz2 = fp.mont_mul(FQ, y, z2)
-    return xz, yz2, fp.add(FQ, z, torch.zeros_like(z))
+    return xz, yz2, fp.mont_mul(FQ, z, FQ.ones_mont(z.shape[1:], z.device))
 
 
 def _use_proj() -> bool:
@@ -196,10 +259,10 @@ def _use_proj() -> bool:
     return os.environ.get("GEMINI_TPU_PROJ") != "0"
 
 
-def _jac_padd01(a, b):
+def _jac_padd01(a, b, out=None):
     """z in {0, 1} level-0 combiner of the Jacobian configuration: lift
     the masks to Jacobian z and add through the add kernel."""
-    return ec_scan.add_points(ec_scan._lift01(*a), ec_scan._lift01(*b))
+    return ec_scan.add_points(ec_scan._lift01(*a), ec_scan._lift01(*b), out)
 
 
 def combiners(use_proj: bool):
@@ -223,15 +286,16 @@ def _boundary_positions(sd, c: int):
     return (n - 1) - b
 
 
-def _window_chunk(px, py, pinf, mags, negs, c: int, use_proj: bool):
-    """One window chunk: sort by magnitude, positional prefix sums at the
-    2^(c-1) bucket boundaries, bucket tree-reduce.  Returns the chunk's
-    window totals, each (L, Wc): projective with `use_proj`, else
-    Jacobian."""
+def _window_chunk(pp, key, c: int, use_proj: bool):
+    """One window chunk of (Wc, n) sort keys (digit_keys) over the packed
+    points (pack_points): sort by
+    magnitude, positional prefix sums at the 2^(c-1) bucket boundaries,
+    bucket tree-reduce.  Returns the chunk's window totals, each (L, Wc):
+    projective with `use_proj`, else Jacobian."""
     combiner, combiner01 = combiners(use_proj)
-    n = mags.shape[1]
+    n = key.shape[1]
     rb = ec_scan.bitrev_levels(n, 1 << (c - 1))
-    fx, fy, fm, sd = _sort_gather_proj(px, py, pinf, mags, negs, rb)
+    fx, fy, fm, sd = _sort_gather_proj(pp, key, rb)
     pos = _boundary_positions(sd, c)
     bx, by, bz = ec_scan.prefix_sums_at(fx, fy, fm, pos, combiner=combiner,
                                         combiner01=combiner01, rev_bits=rb)
@@ -255,17 +319,16 @@ def _pad_points_scalars(points: APoint, scalars, npad: int):
     return points, scalars
 
 
-def _run_chunks(points: APoint, mags, negs, c: int, window_chunk: int,
+def _run_chunks(points: APoint, keys, c: int, window_chunk: int,
                 use_proj: bool):
-    """Run the window-chunk pipeline over all windows; returns (x, y, z)
-    totals of shape (L, W), projective with `use_proj`, else Jacobian."""
-    W = mags.shape[0]
+    """Run the window-chunk pipeline over all windows of the (W, lanes)
+    sort keys (digit_keys); returns (x, y, z) totals of shape (L, W),
+    projective with `use_proj`, else Jacobian."""
+    W = keys.shape[0]
+    pp = pack_points(points.x, points.y)
     tx, ty, tz = [], [], []
     for w0 in range(0, W, window_chunk):
-        mc = mags[w0: w0 + window_chunk]
-        nc = negs[w0: w0 + window_chunk]
-        x, y, z = _window_chunk(points.x, points.y, points.inf, mc, nc, c,
-                                use_proj)
+        x, y, z = _window_chunk(pp, keys[w0: w0 + window_chunk], c, use_proj)
         tx.append(x)
         ty.append(y)
         tz.append(z)
@@ -303,16 +366,14 @@ def _glv_plan(n_lanes: int):
                        max_scalar=glv_mod.COMPONENT_BOUND)
 
 
-def _glv_window_digits(k1m, k1n, k2m, k2n, c: int):
-    """GLV component limbs -> per-window (mags, negs) over the doubled
-    lane axis [P lanes | phi(P) lanes]; component signs fold into the
-    digit negation flags the sort consumes."""
+def _glv_window_keys(k1m, k1n, k2m, k2n, c: int, pinf):
+    """GLV component limbs -> per-window sort keys over the doubled lane
+    axis [P lanes | phi(P) lanes]; component signs fold into the keys'
+    negation flags, and both halves carry the points' infinity flags."""
     from . import glv as glv_mod
 
-    m1, g1_ = extract_signed_digits(k1m, c, glv_mod.GLV_BITS)
-    m2, g2_ = extract_signed_digits(k2m, c, glv_mod.GLV_BITS)
-    return (torch.cat([m1, m2], dim=1),
-            torch.cat([g1_ ^ k1n[None, :], g2_ ^ k2n[None, :]], dim=1))
+    return torch.cat([digit_keys(k1m, c, glv_mod.GLV_BITS, pinf, k1n),
+                      digit_keys(k2m, c, glv_mod.GLV_BITS, pinf, k2n)], dim=1)
 
 
 def _glv_double_points(points: APoint) -> APoint:
@@ -335,10 +396,10 @@ def _msm_glv(points: APoint, scalars, c: int | None = None) -> JPoint:
     c_plan, window_chunk = _glv_plan(2 * npad)
     if c is None:
         c = c_plan
-    mags, negs = _glv_window_digits(*glv_mod.decompose(scalars), c)
+    keys = _glv_window_keys(*glv_mod.decompose(scalars), c, points.inf)
     use_proj = _use_proj()
-    totals = _run_chunks(_glv_double_points(points), mags, negs, c,
-                         window_chunk, use_proj)
+    totals = _run_chunks(_glv_double_points(points), keys, c, window_chunk,
+                         use_proj)
     if use_proj:
         totals = _proj_to_jacobian(*totals)
     return _horner_host(totals, c, points.x.device)
@@ -366,9 +427,9 @@ def msm(points: APoint, scalars, c: int | None = None, n_bits: int = N_BITS,
     if c is None:
         c = c_plan
     points, scalars = _pad_points_scalars(points, scalars, npad)
-    mags, negs = extract_signed_digits(scalars, c, n_bits)
+    keys = digit_keys(scalars, c, n_bits, points.inf)
     use_proj = _use_proj()
-    totals = _run_chunks(points, mags, negs, c, window_chunk, use_proj)
+    totals = _run_chunks(points, keys, c, window_chunk, use_proj)
     if use_proj:
         totals = _proj_to_jacobian(*totals)
     return _horner_host(totals, c, points.x.device)
@@ -424,24 +485,21 @@ def msm_batch(points: APoint, scalars_sets, c: int | None = None,
         c_plan, window_chunk = plan_window(npad, n_bits)
     if c is None:
         c = c_plan
-    mags_l, negs_l = [], []
+    keys_l = []
     for s in sets:
         if s.shape[1] < npad:
             s = torch.cat([s, s.new_zeros((s.shape[0], npad - s.shape[1]))],
                           dim=1)
         if glv:
-            m, g = _glv_window_digits(*glv_mod.decompose(s), c)
+            keys_l.append(_glv_window_keys(*glv_mod.decompose(s), c, points.inf))
         else:
-            m, g = extract_signed_digits(s, c, n_bits)
-        mags_l.append(m)
-        negs_l.append(g)
-    W = mags_l[0].shape[0]
-    mags = torch.cat(mags_l, dim=0)  # (S*W, lanes)
-    negs = torch.cat(negs_l, dim=0)
+            keys_l.append(digit_keys(s, c, n_bits, points.inf))
+    W = keys_l[0].shape[0]
+    keys = torch.cat(keys_l, dim=0)  # (S*W, lanes)
     if glv:
         points = _glv_double_points(points)
     use_proj = _use_proj()
-    totals = _run_chunks(points, mags, negs, c, window_chunk, use_proj)
+    totals = _run_chunks(points, keys, c, window_chunk, use_proj)
     if use_proj:
         totals = _proj_to_jacobian(*totals)
     tot = [t.cpu() for t in totals]  # one readback for all sets

@@ -31,7 +31,7 @@ from ..ops.msm import (
     N_BITS,
     _glv_double_points,
     _glv_plan,
-    _glv_window_digits,
+    _glv_window_keys,
     _host_msm_max,
     _jpoint_from_host,
     _msm_host,
@@ -40,7 +40,7 @@ from ..ops.msm import (
     _run_chunks,
     _use_glv,
     _use_proj,
-    extract_signed_digits,
+    digit_keys,
     msm,
     msm_batch,
     plan_window,
@@ -55,7 +55,7 @@ def _devices(devices: Optional[Sequence]) -> list:
     return list(default_mesh().devices)
 
 
-def _shard_totals(points: APoint, mags, negs, devs, per: int, c: int,
+def _shard_totals(points: APoint, keys, devs, per: int, c: int,
                   window_chunk: int):
     """Each shard's window totals (Jacobian, (L, W) per coordinate), run
     on its own device, then ONE readback: a list of d lists of W host
@@ -67,12 +67,11 @@ def _shard_totals(points: APoint, mags, negs, devs, per: int, c: int,
         sl = slice(i * per, (i + 1) * per)
         pts = APoint(points.x[:, sl].to(dev), points.y[:, sl].to(dev),
                      points.inf[sl].to(dev))
-        tot = _run_chunks(pts, mags[:, sl].to(dev), negs[:, sl].to(dev), c,
-                          window_chunk, use_proj)
+        tot = _run_chunks(pts, keys[:, sl].to(dev), c, window_chunk, use_proj)
         if use_proj:
             tot = _proj_to_jacobian(*tot)
         cols.append([t.to(dev0) for t in tot])
-    W = mags.shape[0]
+    W = keys.shape[0]
     tot = [torch.cat([col[k] for col in cols], dim=1).cpu() for k in range(3)]
     pts = g1.decode_jacobian(JPoint(*tot))
     return [pts[i * W:(i + 1) * W] for i in range(len(devs))]
@@ -93,13 +92,14 @@ def _horner(shard_pts, w0: int, W: int, c: int):
     return acc
 
 
-def _pad_lanes(points: APoint, mags, negs, npad: int):
+def _pad_lanes(points: APoint, keys, npad: int):
+    """(infinity, 0) padding lanes: the points at infinity, and key 1 (digit
+    0, infinity), the key digit_keys gives them."""
     pad = npad - points.x.shape[1]
     if pad == 0:
-        return points, mags, negs
-    points, _ = _pad_points_scalars(points, mags[:0], npad)
-    return (points, torch.cat([mags, mags.new_zeros((mags.shape[0], pad))], 1),
-            torch.cat([negs, negs.new_zeros((negs.shape[0], pad))], 1))
+        return points, keys
+    points, _ = _pad_points_scalars(points, keys[:0], npad)
+    return points, torch.cat([keys, keys.new_ones((keys.shape[0], pad))], 1)
 
 
 def msm_multichip(points: APoint, scalars, devices: Optional[Sequence] = None,
@@ -124,13 +124,13 @@ def msm_multichip(points: APoint, scalars, devices: Optional[Sequence] = None,
     if use_glv:
         from ..ops import glv as glv_mod
 
-        mags, negs = _glv_window_digits(*glv_mod.decompose(scalars), c)
+        keys = _glv_window_keys(*glv_mod.decompose(scalars), c, points.inf)
         points = _glv_double_points(points)
     else:
-        mags, negs = extract_signed_digits(scalars, c, n_bits)
-    points, mags, negs = _pad_lanes(points, mags, negs, npad_lanes)
-    shard_pts = _shard_totals(points, mags, negs, devs, per, c, window_chunk)
-    return _jpoint_from_host(_horner(shard_pts, 0, mags.shape[0], c),
+        keys = digit_keys(scalars, c, n_bits, points.inf)
+    points, keys = _pad_lanes(points, keys, npad_lanes)
+    shard_pts = _shard_totals(points, keys, devs, per, c, window_chunk)
+    return _jpoint_from_host(_horner(shard_pts, 0, keys.shape[0], c),
                              points.x.device)
 
 
@@ -174,7 +174,7 @@ def msm_batch_multichip(points: APoint, scalars_sets,
                         points.inf[:base_lanes])
     else:
         points, _ = _pad_points_scalars(points, sets[0][:, :0], base_lanes)
-    mags_l, negs_l = [], []
+    keys_l = []
     for s in sets:
         if s.shape[1] < base_lanes:
             s = torch.cat([s, s.new_zeros((s.shape[0], base_lanes - s.shape[1]))],
@@ -182,16 +182,13 @@ def msm_batch_multichip(points: APoint, scalars_sets,
         if use_glv:
             from ..ops import glv as glv_mod
 
-            m, g = _glv_window_digits(*glv_mod.decompose(s), c)
+            keys_l.append(_glv_window_keys(*glv_mod.decompose(s), c, points.inf))
         else:
-            m, g = extract_signed_digits(s, c, n_bits)
-        mags_l.append(m)
-        negs_l.append(g)
-    W = mags_l[0].shape[0]
-    mags = torch.cat(mags_l, dim=0)  # (S*W, lanes)
-    negs = torch.cat(negs_l, dim=0)
+            keys_l.append(digit_keys(s, c, n_bits, points.inf))
+    W = keys_l[0].shape[0]
+    keys = torch.cat(keys_l, dim=0)  # (S*W, lanes)
     if use_glv:
         points = _glv_double_points(points)
-    shard_pts = _shard_totals(points, mags, negs, devs, per, c, window_chunk)
+    shard_pts = _shard_totals(points, keys, devs, per, c, window_chunk)
     return [_jpoint_from_host(_horner(shard_pts, si * W, W, c), points.x.device)
             for si in range(len(sets))]
