@@ -74,12 +74,16 @@ native host library from the sources in the checkout, then, in order:
      and three walk-down launches (random scalars with 0 and the largest, GLV signs, a tenth of
      the points at infinity, y = 0; the walk-down in both configurations),
      with every scalar small (dead windows) and every point at infinity
-     at the 2^10, 2^16 and 2^20 plans; holds padd, padd01 and add writing
+     at the 2^10, 2^16 and 2^20 plans, msm_sort_gather on both its
+     mappings (requires plans of each), and prints the split walk-down's
+     occupancy; holds padd, padd01 and add writing
      into odd-slot and transposed output views against their fresh
      outputs, and the copy-free stop-level scan against the same scan on
-     the plain padd and add; times each glue kernel at the MSM 2^20 and
-     2^14 plans beside its bound and its plain version (one
-     {"msm_glue_kernel_times": ...} line);
+     the plain padd and add; times each glue kernel at the MSM 2^20,
+     2^18 and 2^14 plans beside its bound and its plain version, the
+     Jacobian walk-down beside the projective one, and the gather's
+     attribution at the 2^20 plan (one {"msm_glue_kernel_times": ...}
+     line);
   3. runs the kernel MSM pipeline at 2^16 (and at c = 7) against the
      host Pippenger and
      times it at 2^20 on bench.py's inputs, in the projective and in the
@@ -1525,7 +1529,10 @@ SECTOR = 32
 SG_OUT_BYTES = 8 + 192 + 1 + 8
 PACK_BYTES = 192 + 96
 GLUE_LOGS = range(8, 23)  # lanes 2^8 .. 2^22
-GLUE_TIMED = (1 << 20, 1 << 14)  # the MSM 2^20 and 2^14 plans
+# the MSM 2^20 plan (the table's row), the 2^18 plan (the 2^18 SNARK's
+# largest MSM: c = 13, Wc = 4) and the 2^14 plan
+GLUE_TIMED = (1 << 20, 1 << 18, 1 << 14)
+GATHER_L2_ROWS = 1 << 15  # the gather's variant with rows from an L2-held table
 
 
 def glue_plans():
@@ -1714,9 +1721,55 @@ def check_glue_plan(results, gen, plan, kind, configs, keep=None):
         if keep is not None and proj:
             keep.update(sc=sc, c=c, W=W, pinf=pinf, px=px, py=py, pp=pp, skey=skey,
                         order=order, rb=rb, pos=pos, scanned=scanned, levels=levels)
+        elif keep is not None:
+            keep.update(jacobian=(scanned, levels))
     for name, err in errs.items():
         res = results.setdefault(name, {"max_abs_err": 0, "bit_exact": True})
         res["max_abs_err"] = max(res["max_abs_err"], err)
+
+
+def glue_split_ms(k, variants):
+    """Device ms (guarded events) of msm_sort_gather and of msm_walk_down
+    in both configurations on one plan's inputs `k` (check_glue_plan's
+    `keep`, the walk-down in both configurations); with `variants`, the
+    gather's attribution: the same kernel with the order the identity
+    (rows read in sequence), with rb = 0 (keys and order read
+    coalesced), both, with every row taken from the first GATHER_L2_ROWS
+    points (a table the L2 holds), and pp.index_select of the order's
+    rows (a yardstick of random 96-byte row gathers, not the function).
+    It calls only wrappers and helpers that checkouts from before the
+    redesigned glue kernels also have, so benches/pairs.py times a parent
+    checkout with it too."""
+    import torch
+
+    from gemini_tpu_torch.benches.timing import event_ms
+    from gemini_tpu_torch.ops import msm_kernels as mk
+
+    iters = 20 if k["skey"].numel() >= 1 << 20 else 100
+
+    def ms(fn):
+        return event_ms(fn, iters, spin_cycles=40_000_000)
+
+    pp, skey, order, rb = k["pp"], k["skey"], k["order"], k["rb"]
+    scanned_j, levels_j = k["jacobian"]
+    out = {"msm_sort_gather": ms(lambda: mk.sort_gather(pp, skey, order, rb)),
+           "msm_walk_down": ms(lambda: mk.walk_down(k["pos"], k["scanned"], k["levels"],
+                                                    rb, True)),
+           "msm_walk_down_jacobian": ms(lambda: mk.walk_down(k["pos"], scanned_j, levels_j,
+                                                             rb, False))}
+    if variants:
+        ident = torch.arange(skey.shape[-1], device=skey.device).expand_as(order)
+        ident = ident.contiguous()
+        in_l2 = order % GATHER_L2_ROWS
+        rows = order.flatten()
+        out["msm_sort_gather_variants"] = {
+            "order_identity": ms(lambda: mk.sort_gather(pp, skey, ident, rb)),
+            "rb_0": ms(lambda: mk.sort_gather(pp, skey, order, 0)),
+            "order_identity_rb_0": ms(lambda: mk.sort_gather(pp, skey, ident, 0)),
+            "rows_in_l2": ms(lambda: mk.sort_gather(pp, skey, in_l2, rb)),
+            "index_select": ms(lambda: pp.index_select(0, rows)),
+            "index_select_rows": rows.numel()}
+    return out
 
 
 def check_strided_outputs(results):
@@ -1772,11 +1825,15 @@ def phase_msm_glue(results):
     for bit, at every plan of glue_plans() (random scalars with 0 and the
     largest; the walk-down in both configurations), and with every scalar
     small (dead windows) and every point at infinity at the 2^10, 2^16 and
-    2^20 plans; the strided outputs of padd, padd01 and add; then each
-    kernel timed at the MSM 2^20 and 2^14 plans (guarded events) beside its
-    bound (bytes at the HBM rate, or at the 2^14 plan, whose operands stay
-    in the L2, at phase 2b's measured L2 rate) and its plain version (host
-    clock, 2^20); prints one {"msm_glue_kernel_times": ...} line."""
+    2^20 plans, the gather at plans of both its mappings; the strided
+    outputs of padd, padd01 and add; then each kernel timed at the MSM
+    2^20, 2^18 and 2^14 plans (guarded events) beside its bound (bytes at
+    the HBM rate, or at the 2^14 plan, whose operands stay in the L2, at
+    phase 2b's measured L2 rate) and its plain version (host clock,
+    2^20), the Jacobian walk-down beside the projective one, and the
+    gather's attribution at the 2^20 plan (glue_split_ms); prints the
+    projective walk-down's occupancy and one {"msm_glue_kernel_times":
+    ...} line."""
     import torch
 
     from gemini_tpu_torch.benches.timing import event_ms
@@ -1789,7 +1846,8 @@ def phase_msm_glue(results):
     plans = glue_plans()
     for plan in plans:
         n, c, wc, bits = plan
-        timed = n in GLUE_TIMED and bits == msm.N_BITS
+        timed = (n in GLUE_TIMED and (c, wc) == tuple(msm.plan_window(n))
+                 and bits == msm.N_BITS)
         keep = kept.setdefault(n, {}) if timed else None
         check_glue_plan(results, gen, plan, "random", (True, False), keep)
         if n in (1 << 10, 1 << 16, 1 << 20) and bits == msm.N_BITS and c != 19:
@@ -1797,6 +1855,19 @@ def phase_msm_glue(results):
                 check_glue_plan(results, gen, plan, kind, (True, False))
     log(f"MSM glue kernels: bit-exact at {len(plans)} plans {plans} (the walk-down "
         "projective and Jacobian), with dead windows and all points at infinity")
+    lane_plans = [p for p in plans if not mk.sort_gather_blocked(
+        p[0], ec_scan.bitrev_levels(p[0], 1 << (p[1] - 1)))]
+    if not 0 < len(lane_plans) < len(plans):
+        raise AssertionError(f"msm_sort_gather: {len(lane_plans)} of {len(plans)} plans "
+                             "on the lane mapping; 2f must check both mappings")
+    log(f"msm_sort_gather: block mapping at {len(plans) - len(lane_plans)} plans, a "
+        f"thread on its own lane at {lane_plans}")
+    occ = mk.walk_down_occupancy()
+    results["msm_walk_down"].update(
+        resident_blocks_per_sm=occ["blocks_per_sm"],
+        resident_warps_per_sm=occ["blocks_per_sm"] * 3,
+        resident_shared_bytes_per_block=occ["shared_bytes"])
+    log(json.dumps({"msm_walk_down_occupancy": occ}))
     check_strided_outputs(results)
 
     times = {}
@@ -1826,12 +1897,12 @@ def phase_msm_glue(results):
                                                      k["rb"], plain_combiner(True)),
                     lambda: walk_down_work(k["pos"], k["scanned"], k["levels"],
                                            k["rb"]))}[name]
-            ms = event_ms(kern, 100 if n < GLUE_TIMED[0] else 20, spin_cycles=40_000_000)
+            ms = event_ms(kern, 100 if n < 1 << 18 else 20, spin_cycles=40_000_000)
             nbytes, imads = work()
             # at the 2^14 plan every operand stays in the L2 between the
             # timed launches: its bytes move at most at the L2 rate
             # l2bench measured (phase 2b's copy_add row), as copy_add's are
-            rate = HBM_BYTES_PER_S if n == GLUE_TIMED[0] else l2_rate
+            rate = l2_rate if n == 1 << 14 else HBM_BYTES_PER_S
             bound = max(nbytes / rate, imads / IMAD_PER_S) * 1e3
             by = "bytes" if nbytes / rate >= imads / IMAD_PER_S else "operations"
             key = f"2^{n.bit_length() - 1}"
@@ -1847,12 +1918,28 @@ def phase_msm_glue(results):
                            source=MSM_SOURCE, bound_ms=bound, bound_by=by)
                 times[name][key]["plain_ms"] = res["plain_ms"]
             else:
-                res.update({"ms_2^14": ms, "bound_ms_2^14": bound,
-                            "bound_by_2^14": by, "bound_share_2^14": bound / ms})
-        log(f"kernel {name}: {res['ms_2^14']:.4f} ms at the 2^14 plan, {res['ms']:.4f} "
+                res.update({f"ms_{key}": ms, f"bound_ms_{key}": bound,
+                            f"bound_by_{key}": by, f"bound_share_{key}": bound / ms})
+        log(f"kernel {name}: {res['ms_2^14']:.4f} ms at the 2^14 plan, "
+            f"{res['ms_2^18']:.4f} ms at the 2^18 plan, {res['ms']:.4f} "
             f"ms at the 2^20 plan (bound {res['bound_ms']:.4f} ms, "
             f"{res['bound_ms'] / res['ms']:.1%} of it, {res['bound_by']}; plain "
             f"{res['plain_ms']:.2f} ms)")
+    for n in GLUE_TIMED:
+        key = f"2^{n.bit_length() - 1}"
+        split = glue_split_ms(kept[n], n == GLUE_TIMED[0])
+        times["msm_walk_down"][key]["jacobian_ms"] = split["msm_walk_down_jacobian"]
+        times["msm_sort_gather"][key]["block_mapping"] = mk.sort_gather_blocked(
+            n, kept[n]["rb"])
+        if "msm_sort_gather_variants" in split:
+            var = split["msm_sort_gather_variants"]
+            times["msm_sort_gather"][key]["variants"] = var
+            # the yardstick's bytes: each of its rows read and written once
+            var["index_select_bound_ms"] = (var["index_select_rows"] * 2 * 96
+                                            / HBM_BYTES_PER_S * 1e3)
+            log(f"msm_sort_gather at the 2^20 plan: {json.dumps(var)}")
+        if n == GLUE_TIMED[0]:
+            results["msm_walk_down"]["jacobian_ms"] = split["msm_walk_down_jacobian"]
     log(json.dumps({"msm_glue_kernel_times": times}))
 
 
@@ -2989,9 +3076,12 @@ OWN_KERNELS = {"padd01_kernel": "padd01", "padd_kernel": "padd",
                "fr_reduce_kernel": "fr_reduce", "fr_lane_sum_kernel": "fr_lane_sum",
                "msm_digits_kernel": "msm_digits", "msm_pack_kernel": "msm_pack",
                "msm_sort_gather_kernel": "msm_sort_gather",
-               "msm_walk_down_kernel": "msm_walk_down"}
-ALL_KERNELS = {**OWN_KERNELS, "vpu_chain_kernel": "vpu_chain",
-               "copy_add_kernel": "copy_add"}
+               "msm_walk_down_kernel": "msm_walk_down",
+               "msm_walk_down_split_kernel": "msm_walk_down"}
+# ptxas's lines per kernel: the Jacobian walk-down (a thread a lane) apart
+# from the projective one (split), which is the table's row.
+ALL_KERNELS = {**OWN_KERNELS, "msm_walk_down_kernel": "msm_walk_down_jacobian",
+               "vpu_chain_kernel": "vpu_chain", "copy_add_kernel": "copy_add"}
 
 
 # The plain int64 chains' PyTorch kernels by name (phase 6): what the Fr
@@ -3301,6 +3391,7 @@ def kernel_rows(results, rates, usage):
                                     if r["library_ms"] else None),
             "bit_exact": r["bit_exact"], "lanes": r["lanes"],
             **usage.get(name, {}),
+            **{f"{k}_jacobian": v for k, v in usage.get(f"{name}_jacobian", {}).items()},
         })
         if name == "add":
             rows[-1]["bound_ms_23_products"] = (

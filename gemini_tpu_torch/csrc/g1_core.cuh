@@ -160,6 +160,108 @@ __device__ __forceinline__ void padd_core(const Ld& ld, const Put& put,
   put(2, fq::rmm_add(z3, w4, t3, w0));            // z3 t4 + t0 t3
 }
 
+// padd_core split over three threads of one lane, one warp per role
+// (csrc/msm_kernels.cu's walk-down), in three steps with a block barrier
+// between them: role r computes two of the six products (7 of the
+// 21 x 144 word products with its output's), then some of the
+// combinations of the products each computed once, then output
+// coordinate r, padd_core's put(r).  Every value is padd_core's, from
+// the same fq:: call on the same operands in the same order, so the
+// limbs are the same.
+//
+// The exchange of a group of kSplitLanes lanes is two sets of six planes
+// of [kSplitLanes][NW] words: a lane's value is 48 contiguous bytes, read
+// and written as three 16-byte accesses (lanes 48 bytes apart: no bank
+// conflict), ordered between threads by the block barriers alone.
+// With the accumulator (x1 y1 z1) and the operand (x2 y2 z2) in set X,
+// the products go to set Y (t0 t1 t2 = x1x2, y1y2, z1z2; then t3 x3 t4
+// = (x1+y1)(x2+y2), (x1+z1)(x2+z2), (y1+z1)(y2+z2), raw), the
+// combinations back to set X (SplitFinal), and the next accumulator and
+// operand to set Y: each step writes only planes whose readers have
+// passed the barrier before it.
+constexpr int kSplitLanes = 32;
+constexpr int kSplitThreads = 3 * kSplitLanes;
+constexpr int kSplitSet = 6;  // planes a set
+constexpr int kSplitPlane = fq::NW * kSplitLanes;
+constexpr int kSplitWords = 2 * kSplitSet * kSplitPlane;
+// The combinations: t3 = x1y2 + x2y1, t4 = y1z2 + y2z1, 3 x1x2,
+// y3 = b3 (x1z2 + x2z1), z3 = t1 + b3 z1z2, t1 - b3 z1z2.
+enum SplitFinal { kT3 = 0, kT4 = 1, kT0x3 = 2, kY3 = 3, kZ3 = 4, kT1 = 5 };
+
+// Words k of a value at s[k]: a word operand for mont_core.
+struct Words {
+  const uint32_t* s;
+  __device__ __forceinline__ uint32_t operator[](int k) const { return s[k]; }
+};
+
+// The lane's value in plane v (`ex`: the exchange + NW * lane, 16-byte
+// aligned).
+struct SplitLane {
+  uint32_t* ex;
+  __device__ __forceinline__ uint32_t* plane(int v) const { return ex + v * kSplitPlane; }
+  __device__ __forceinline__ F get(int v) const {
+    const uint4* p = (const uint4*)plane(v);
+    F r;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const uint4 a = p[q];
+      r.w[4 * q] = a.x;
+      r.w[4 * q + 1] = a.y;
+      r.w[4 * q + 2] = a.z;
+      r.w[4 * q + 3] = a.w;
+    }
+    return r;
+  }
+  __device__ __forceinline__ void put(int v, const F& a) const {
+    uint4* p = (uint4*)plane(v);
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      p[q] = make_uint4(a.w[4 * q], a.w[4 * q + 1], a.w[4 * q + 2], a.w[4 * q + 3]);
+  }
+  __device__ __forceinline__ Words words(int v) const { return Words{plane(v)}; }
+};
+
+// Step 1, the accumulator and the operand in set `x`: role r's product
+// of coordinate r and its raw sum of products over the coordinate pair
+// (x, y), (x, z), (y, z), into set `y`.
+__device__ __forceinline__ void padd_split_products(int role, const SplitLane& s, int x,
+                                                    int y) {
+  const int i = role == 2 ? 1 : 0, j = role == 0 ? 1 : 2;
+  const F s2 = fq::radd(s.get(x + 3 + i), s.get(x + 3 + j));
+  s.put(y + 3 + role, fq::rmm(fq::radd(s.get(x + i), s.get(x + j)), s2));
+  s.put(y + role, fq::rmm(s.get(x + role), s.get(x + 3 + role)));
+}
+
+// Step 2, the products in set `y`: role 0 t3, t4 and 3 x1x2, role 1 y3,
+// role 2 z3 and t1 (about the same work each), into set `x`.
+__device__ __forceinline__ void padd_split_finals(int role, const SplitLane& s, int y,
+                                                  int x) {
+  if (role == 0) {
+    s.put(x + kT3, fq::rsub(fq::rsub(s.get(y + 3), s.get(y + 0)), s.get(y + 1)));
+    s.put(x + kT4, fq::rsub(fq::rsub(s.get(y + 5), s.get(y + 1)), s.get(y + 2)));
+    const F t0 = s.get(y + 0);
+    s.put(x + kT0x3, fq::radd(fq::radd(t0, t0), t0));
+  } else if (role == 1) {
+    s.put(x + kY3, fq::rmul12(fq::rsub(fq::rsub(s.get(y + 4), s.get(y + 0)), s.get(y + 2))));
+  } else {
+    const F t2 = fq::rmul12(s.get(y + 2));
+    const F t1 = s.get(y + 1);
+    s.put(x + kZ3, fq::radd(t1, t2));
+    s.put(x + kT1, fq::rsub(t1, t2));
+  }
+}
+
+// Step 3, the combinations in set `x`: output coordinate r,
+//   x3 = t3 t1 - t4 y3, y3' = t1 z3 + y3 3x1x2, z3' = z3 t4 + 3x1x2 t3,
+// with padd_core's operand order (t1, t4, 3x1x2 word operands only).
+__device__ __forceinline__ F padd_split_result(int role, const SplitLane& s, int x) {
+  const F a = s.get(x + (role == 0 ? kT3 : kZ3));
+  F c = s.get(x + (role == 2 ? kT3 : kY3));
+  if (role == 0) c = fq::rneg(c);
+  return fq::rmm_add(a, s.words(x + (role == 2 ? kT4 : kT1)), c,
+                     s.words(x + (role == 0 ? kT4 : kT0x3)));
+}
+
 // _dbl_core: dbl-2009-l.  Maps the identity (z = 0) to z3 = 0.
 __device__ __forceinline__ void dbl_core(const F& x, const F& y, const F& z,
                                          F& x3, F& y3, F& z3) {

@@ -35,7 +35,9 @@
 // negation is fq::fsub(0, y), which is fields/fp.py's neg (0 - y, plus p
 // on a borrow: 0 stays 0), and the walk-down adds with g1_core.cuh's
 // padd_core (or add_core under GEMINI_TPU_PROJ=0), the code of padd_kernel
-// and add_kernel, on the operands the plain version feeds them.
+// and add_kernel, on the operands the plain version feeds them; the
+// projective walk-down splits padd_core's values over three threads
+// (g1_core.cuh padd_split_*), each from the same fq:: call.
 //
 // What bounds them on an H100:
 // - msm_digits: bytes.  A lane reads its L limbs (4 bytes each) and its
@@ -50,30 +52,52 @@
 //   48 words in 48 separate sectors: the first design gathered those,
 //   1.54 ms at 2^20 lanes, NVIDIA H100 80GB HBM3, 700 W); the keys and
 //   the order are a permutation, read whole (8 bytes each a lane); the
-//   outputs 209 bytes a lane: 321 bytes a lane at 2^20.
+//   outputs 209 bytes a lane: 321 bytes a lane at 2^20.  The rows are
+//   random reads (96 of the 128 bytes of two DRAM bursts); the keys and
+//   the order are read in the partial bit-reversed order, which puts
+//   neighbouring output lanes 2^rb keys apart.
 // - msm_walk_down: operations.  Each (window, bucket) lane runs one
 //   padd (21 x 144 word products, two IMADs each) per reduce-chain level
 //   kept; the distinct sectors of its gathers (8 lanes share one where
 //   their indices are consecutive) take less time at the HBM rate (at
 //   the 2^20 plan 0.044 ms against 0.059 ms of IMADs, NVIDIA H100 80GB
-//   HBM3, 700 W).
+//   HBM3, 700 W).  But its lanes are few: Wc x 2^(c-1), 416 to 32,768
+//   over the plans, 8 warps an SM at the 2^20 plan with a thread a lane,
+//   where padd needs 12 to reach three quarters of its bound, and each
+//   padd is one chain of carries.
 //
 // The design:
-// - One thread per lane (digits: per scalar, walking the windows in
-//   order with the bit buffer and the recode carry in registers; gather:
-//   per output lane; walk-down: per (window, bucket)).
-// - The walk-down's accumulator stays in registers through all levels;
-//   the levels are passed as up to kMaxLevels descriptors (x, y, z or
-//   mask, each with (limb, row, lane) strides; the lane count's log and
-//   the level's reversed bits) in a __grid_constant__ parameter, indexed
-//   by the level in a loop whose body is one padd.  rb (the levels kept)
-//   reaches 7 in the plans from 2^8 to 2^22 lanes, GLV included; a
-//   caller's smaller window (msm's c=) can give more, which take one
-//   launch per kMaxLevels, each after the first starting from the sums
-//   the one before wrote.
-// - __launch_bounds__(128) for the walk-down: it has Wc x 2^(c-1) lanes
-//   (32,768 at 2^20), about two blocks per SM, so it takes registers
-//   rather than occupancy.
+// - digits: a thread per scalar, walking the windows in order with the
+//   bit buffer and the recode carry in registers; pack: a thread per
+//   point.
+// - gather: a thread per output lane; where rb >= 2 and n >= 2^(rb+5),
+//   a block's lanes are 32 consecutive hi times 4 jtop, its keys and
+//   order read as whole sectors into shared memory and each warp's
+//   stores whole lines (a warp of 8 hi x 4 jtop writing 4 runs of 8
+//   lanes was slower at the 2^14 and 2^18 plans, NVIDIA H100 80GB HBM3,
+//   700 W).  Other shapes (c = 19 at 2^16, c = 2 at 2^18, the 2^8 GLV
+//   plan) keep a thread on its own lane.
+// - walk-down, projective: three threads a (window, bucket) lane, one
+//   warp per role, each with 7 of padd's 21 products (g1_core.cuh
+//   padd_split_*), the products and their combinations exchanged in
+//   shared memory: three times the warps of a thread a lane (24 an SM
+//   at the 2^20 plan).  A block is 32 lanes, the smallest that keeps the
+//   roles warp-uniform, so a small launch still spreads over all SMs.
+//   __launch_bounds__(96, 8) holds it to 80 registers, so that the 2^20
+//   plan's 1,024 blocks are resident in one wave; the exchange is 18 KB
+//   a block, so the SM keeps most of its L1 for the level gathers (with
+//   the shared carveout at its maximum the same kernel was 28% slower).
+//   Jacobian (GEMINI_TPU_PROJ=0): a thread a lane with add_core, whose
+//   doubling branch a split would diverge on; __launch_bounds__(128)
+//   lets it take registers rather than occupancy.
+// - The walk-down's levels are passed as up to kMaxLevels descriptors
+//   (x, y, z or mask, each with (limb, row, lane) strides; the lane
+//   count's log and the level's reversed bits) in a __grid_constant__
+//   parameter, indexed by the level in a loop whose body is one add.  rb
+//   (the levels kept) reaches 7 in the plans from 2^8 to 2^22 lanes, GLV
+//   included; a caller's smaller window (msm's c=) can give more, which
+//   take one launch per kMaxLevels, each after the first starting from
+//   the sums the one before wrote.
 // - The pack runs once per MSM (per shard), the gather once per chunk:
 //   at 2^20 lanes 16 chunks read the same points.
 
@@ -88,6 +112,10 @@ using g1::kThreads;
 namespace {
 
 constexpr int kMaxLevels = 8;
+// Blocks of the split walk-down an SM holds: 8 x 96 threads at up to 80
+// registers (65,536 / 768 = 85, in ptxas's granule of 8), and 8 x 18 KB
+// of exchange in the SM's 228 KB of shared memory.
+constexpr int kSplitBlocks = 8;
 
 // 1_mont = 2^384 mod p, the identity's y.
 __constant__ uint32_t ONE_M[fq::NW] = {
@@ -201,23 +229,53 @@ struct Gather {
   long long* sd;    // (Wc * n)
 };
 
-// Output lane t = (w, j): storage index j of the partial bit-reversed
-// layout holds logical index p = (hi << rb) | rev(j's top rb bits) of the
-// flipped (descending) order, so its source is the sorted position
-// n - 1 - p.
+// Output storage lane (w, j) of the partial bit-reversed layout holds
+// logical index p = (hi << rb) | rev(jtop) of the flipped (descending)
+// order, j = (jtop: rb bits, hi: log_n - rb bits), so its source is the
+// sorted position n - 1 - p: neighbouring lanes' sources are 2^rb keys
+// apart.  Where rb >= 2 and n >= 2^(rb + 5), a block of 128 threads
+// fills 32 consecutive hi times 4 values of jtop that differ in their
+// top two bits (whose reversals are 4 consecutive values), warp a the
+// 32 lanes of jtop = J | a << (rb - 2): whole 128-byte lines of each
+// limb row.  Its keys and order come in first through shared memory,
+// each warp reading 8 hi times the 4 jtop: for each hi one aligned
+// 32-byte sector of each array (8 sectors a warp, where 32 lanes 2^rb
+// keys apart take 32).  Other shapes take a thread on its own lane.
+// sd = skey >> 2 goes out at the thread's own lane either way.
+__host__ __device__ __forceinline__ bool gather_blocked(int log_n, int rb) {
+  return rb >= 2 && log_n - rb >= 5;
+}
+
 __global__ void __launch_bounds__(kThreads) msm_sort_gather_kernel(const Gather g) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= g.lanes) return;
   const unsigned nmask = (1u << g.log_n) - 1u;
   const long long row = t & ~(long long)nmask;
-  const unsigned j = (unsigned)(t & nmask);
+  const unsigned i = (unsigned)(t & nmask);
   g.sd[t] = g.skey[t] >> 2;
   const int shift = g.log_n - g.rb;
-  const unsigned hi = j & ((1u << shift) - 1u);
-  const unsigned p = (hi << g.rb) | (g.rb ? rev_bits(j >> shift, g.rb) : 0u);
-  const long long src = row + (nmask - p);
-  const long long k = g.skey[src];
-  const long long o = g.order[src];
+  unsigned j = i;
+  long long k, o;
+  if (gather_blocked(g.log_n, g.rb)) {  // the whole launch: its blocks are whole
+    __shared__ long long sk[kThreads], so[kThreads];
+    const unsigned x = threadIdx.x, blk = i >> 7;
+    const unsigned hp = blk & ((1u << (shift - 5)) - 1u), jlo = blk >> (shift - 5);
+    // this thread reads for lane (a, hoff) of the block
+    const unsigned a = (x >> 3) & 3u, hoff = (x & 7u) | ((x >> 5) << 3);
+    const unsigned p =
+        (((hp << 5) | hoff) << g.rb) | rev_bits(jlo | (a << (g.rb - 2)), g.rb);
+    sk[a * 32 + hoff] = g.skey[row + (nmask - p)];
+    so[a * 32 + hoff] = g.order[row + (nmask - p)];
+    __syncthreads();
+    k = sk[x];
+    o = so[x];
+    j = (x & 31u) | (hp << 5) | (jlo << shift) | ((x >> 5) << (g.log_n - 2));
+  } else {
+    const unsigned hi = j & ((1u << shift) - 1u);
+    const unsigned p = (hi << g.rb) | (g.rb ? rev_bits(j >> shift, g.rb) : 0u);
+    k = g.skey[row + (nmask - p)];
+    o = g.order[row + (nmask - p)];
+  }
   const bool inf = k & 1, neg = (k >> 1) & 1, dead = inf || (k >> 2) == 0;
   const F zero = fq::zero();
   F gx, gy;
@@ -235,10 +293,11 @@ __global__ void __launch_bounds__(kThreads) msm_sort_gather_kernel(const Gather 
     gy.w[4 * q + 2] = b.z;
     gy.w[4 * q + 3] = b.w;
   }
-  fq::store(g.x, g.lanes, t, fq::select(dead, zero, gx));
-  fq::store(g.y, g.lanes, t,
+  const long long out = row + j;
+  fq::store(g.x, g.lanes, out, fq::select(dead, zero, gx));
+  fq::store(g.y, g.lanes, out,
             inf ? one_mont() : (neg ? fq::fsub(zero, gy) : gy));
-  g.mask[t] = !dead;
+  g.mask[out] = !dead;
 }
 
 struct Level {
@@ -269,62 +328,112 @@ struct RegPut {
   __device__ __forceinline__ void operator()(int c, const F& v) const { out[c] = v; }
 };
 
+// A lane's position at level lo of the chain, ((p + 1) >> lo) - 1 (p's
+// (p - 1) >> 1 taken lo times), and at the top, `levels` levels up.
+__device__ __forceinline__ long long level_pos(const Walk& d, unsigned t, int levels) {
+  long long pk = ((d.pos[t] + 1) >> d.lo) - 1;
+  for (int k = 0; k < levels; ++k) pk = (pk - 1) >> 1;
+  return pk;
+}
+
+// Coordinate c of the accumulator's start: the previous launch's sum at
+// the lane (chained), else the scan at the top position, or the
+// identity (0 : 1_mont : 0) where that is -1.
+__device__ __forceinline__ F walk_top(const Walk& d, unsigned t, unsigned w, int c) {
+  if (d.chained) return g1::load_op(d.top[c], w, t - w * d.m);
+  const long long top = level_pos(d, t, d.levels);
+  if (top >= 0) return g1::load_op(d.top[c], w, (unsigned)top);
+  return c == 1 ? one_mont() : fq::zero();
+}
+
+// Coordinate c of level lev's operand at the lane's position pk: (x or
+// 0, y, z or 0), x and z kept where pk is even, y unmasked as in the
+// plain version (RCB scales its output by the identity's y); on a 0/1
+// level z is 1_mont where the position is even and the mask set.
+__device__ __forceinline__ F walk_op(const Level& L, unsigned w, long long pk, int c) {
+  const bool even = pk >= 0 && (pk & 1) == 0;
+  const unsigned pc = pk < 0 ? 0u : (unsigned)pk;
+  const unsigned sidx =
+      L.r > 0 ? (rev_bits(pc, L.r) << (L.log_n - L.r)) | (pc >> L.r) : pc;
+  if (c == 1) return g1::load_op(L.c[1], w, sidx);
+  if (c == 2 && L.is01)
+    return (even && g1::load_mask(L.c[2], w, sidx)) ? one_mont() : fq::zero();
+  return even ? g1::load_op(L.c[c], w, sidx) : fq::zero();
+}
+
 // S(p) = S_reduced((p - 1) >> 1) + (P[p] if p is even else the identity),
-// from the stop level down: the accumulator starts at the scan's value at
-// the top position ((0 : 1_mont : 0) where it is -1), then each level
-// adds (x or 0, y, z or 0) at its position's stored index, y unmasked as
-// in the plain version (RCB scales its output by the identity's y).
-// A chain of more than kMaxLevels levels takes one launch per kMaxLevels,
-// the highest first: a chained launch starts from the one before's sums
-// at its lane, and reads its positions at level lo, ((p + 1) >> lo) - 1
-// (which is p's (p - 1) >> 1 taken lo times).
-template <bool PROJ>
+// from the stop level down: the accumulator starts at walk_top, then
+// each level adds walk_op at its position's stored index.  A chain of
+// more than kMaxLevels levels takes one launch per kMaxLevels, the
+// highest first, each after the first starting from the sums the one
+// before wrote.
+//
+// The Jacobian walk-down (GEMINI_TPU_PROJ=0): one thread per lane, the
+// accumulator in registers, add_core (the code of add_kernel).
 __global__ void __launch_bounds__(kThreads)
     msm_walk_down_kernel(const __grid_constant__ Walk d) {
   const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= d.lanes) return;
   const unsigned w = t / d.m;
-  const long long p0 = ((d.pos[t] + 1) >> d.lo) - 1;
-  long long top = p0;
-  for (int k = 0; k < d.levels; ++k) top = (top - 1) >> 1;
-  const F zero = fq::zero();
   F acc[3], op[3], out[3];
-  if (d.chained) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) acc[c] = g1::load_op(d.top[c], w, t - w * d.m);
-  } else if (top >= 0) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc[c] = g1::load_op(d.top[c], w, (unsigned)top);
-  } else {
-    acc[0] = zero;
-    acc[1] = one_mont();
-    acc[2] = zero;
-  }
+  for (int c = 0; c < 3; ++c) acc[c] = walk_top(d, t, w, c);
   __shared__ volatile uint32_t sm[4][fq::NW][kThreads];
   for (int lev = d.levels - 1; lev >= 0; --lev) {
-    long long pk = p0;
-    for (int k = 0; k < lev; ++k) pk = (pk - 1) >> 1;
-    const bool even = pk >= 0 && (pk & 1) == 0;
-    const unsigned pc = pk < 0 ? 0u : (unsigned)pk;
-    const Level& L = d.lv[lev];
-    const unsigned sidx =
-        L.r > 0 ? (rev_bits(pc, L.r) << (L.log_n - L.r)) | (pc >> L.r) : pc;
-    op[0] = even ? g1::load_op(L.c[0], w, sidx) : zero;
-    op[1] = g1::load_op(L.c[1], w, sidx);
-    if (L.is01)
-      op[2] = (even && g1::load_mask(L.c[2], w, sidx)) ? one_mont() : zero;
-    else
-      op[2] = even ? g1::load_op(L.c[2], w, sidx) : zero;
+    const long long pk = level_pos(d, t, lev);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) op[c] = walk_op(d.lv[lev], w, pk, c);
     const RegLoad ld{acc, op};
-    if (PROJ)
-      g1::padd_core(ld, RegPut{out}, &sm[0][0][threadIdx.x]);
-    else
-      g1::add_core(ld, ld, RegPut{out}, &sm[0][0][threadIdx.x]);
+    g1::add_core(ld, ld, RegPut{out}, &sm[0][0][threadIdx.x]);
 #pragma unroll
     for (int c = 0; c < 3; ++c) acc[c] = out[c];
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) fq::store(d.out[c], d.lanes, t, acc[c]);
+}
+
+// The projective walk-down: each lane's padd split over three threads
+// (g1_core.cuh padd_split_*), one warp per role, a block per
+// kSplitLanes lanes.  Role c loads coordinate c of the start and of each
+// level's operand into the exchange and keeps coordinate c of the
+// accumulator; the next level's operand is read in step 2 and stored
+// after step 3 (read in step 1, or copied by cp.async in step 3, it
+// measured slower).
+// The threads of lanes past the last run with the last lane's operands
+// and store nothing.
+__global__ void __launch_bounds__(g1::kSplitThreads, kSplitBlocks)
+    msm_walk_down_split_kernel(const __grid_constant__ Walk d) {
+  __shared__ __align__(16) uint32_t ex[g1::kSplitWords];
+  const int role = threadIdx.x / g1::kSplitLanes;
+  const unsigned l = threadIdx.x % g1::kSplitLanes;
+  const unsigned t0 = blockIdx.x * g1::kSplitLanes + l;
+  const unsigned t = t0 < d.lanes ? t0 : d.lanes - 1;
+  const unsigned w = t / d.m;
+  const g1::SplitLane s{ex + fq::NW * l};
+  F acc = walk_top(d, t, w, role);
+  int x = 0;  // the set that holds the accumulator and the operand
+  if (d.levels > 0) {
+    const int lev = d.levels - 1;
+    s.put(x + role, acc);
+    s.put(x + 3 + role, walk_op(d.lv[lev], w, level_pos(d, t, lev), role));
+  }
+  for (int lev = d.levels - 1; lev >= 0; --lev) {
+    const int y = g1::kSplitSet - x;
+    __syncthreads();
+    g1::padd_split_products(role, s, x, y);
+    __syncthreads();
+    F next;
+    if (lev > 0) next = walk_op(d.lv[lev - 1], w, level_pos(d, t, lev - 1), role);
+    g1::padd_split_finals(role, s, y, x);
+    __syncthreads();
+    acc = g1::padd_split_result(role, s, x);
+    if (lev > 0) {
+      s.put(y + role, acc);
+      s.put(y + 3 + role, next);
+    }
+    x = y;
+  }
+  if (t0 < d.lanes) fq::store(d.out[role], d.lanes, t, acc);
 }
 
 unsigned blocks_for(long long n, int t) { return (unsigned)((n + t - 1) / t); }
@@ -372,6 +481,12 @@ extern "C" int msm_sort_gather(const int32_t* pp, const long long* skey,
   return (int)cudaGetLastError();
 }
 
+// Whether msm_sort_gather fills windows of 2^log_n lanes with rb
+// reversed bits by its block mapping (1) or a thread a lane (0).
+extern "C" int msm_sort_gather_blocked(int log_n, int rb) {
+  return gather_blocked(log_n, rb);
+}
+
 // levels: per level x, y, z (pointer, limb, row and lane strides), then
 // the lane count's log, the reversed bits and is01 (15 values), from
 // level lo up; top: the scan's x, y, z, or with `chained` the previous
@@ -403,10 +518,27 @@ extern "C" int msm_walk_down(const long long* levels, int nlev, int lo, int chai
   d.out[0] = ox;
   d.out[1] = oy;
   d.out[2] = oz;
-  const int t = g1::threads_for(lanes);
-  if (proj)
-    msm_walk_down_kernel<true><<<blocks_for(lanes, t), t, 0, (cudaStream_t)stream>>>(d);
-  else
-    msm_walk_down_kernel<false><<<blocks_for(lanes, t), t, 0, (cudaStream_t)stream>>>(d);
+  if (proj) {
+    msm_walk_down_split_kernel<<<blocks_for(lanes, g1::kSplitLanes), g1::kSplitThreads, 0,
+                                 (cudaStream_t)stream>>>(d);
+  } else {
+    const int t = g1::threads_for(lanes);
+    msm_walk_down_kernel<<<blocks_for(lanes, t), t, 0, (cudaStream_t)stream>>>(d);
+  }
   return (int)cudaGetLastError();
+}
+
+// The split walk-down's resources on the current device: blocks an SM
+// holds (the occupancy API), registers a thread, local (spill) bytes a
+// thread, static shared bytes a block.
+extern "C" int msm_walk_down_occupancy(int* out) {
+  cudaFuncAttributes a;
+  int err = (int)cudaFuncGetAttributes(&a, msm_walk_down_split_kernel);
+  if (err) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, msm_walk_down_split_kernel, g1::kSplitThreads, 0);
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)a.sharedSizeBytes;
+  return err;
 }

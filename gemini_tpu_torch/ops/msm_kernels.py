@@ -57,7 +57,10 @@ def _bind(lib):
     lib.msm_pack.argtypes = [p, n, n, p, n, n, n, p, p]
     lib.msm_sort_gather.argtypes = [p, p, p, i, i, n, p, p, p, p, p]
     lib.msm_walk_down.argtypes = [p, i, i, i, p, p, n, n, p, p, p, i, p]
-    for fn in (lib.msm_digits, lib.msm_pack, lib.msm_sort_gather, lib.msm_walk_down):
+    lib.msm_walk_down_occupancy.argtypes = [p]
+    lib.msm_sort_gather_blocked.argtypes = [i, i]
+    for fn in (lib.msm_digits, lib.msm_pack, lib.msm_sort_gather, lib.msm_walk_down,
+               lib.msm_walk_down_occupancy, lib.msm_sort_gather_blocked):
         fn.restype = ctypes.c_int
 
 
@@ -172,13 +175,23 @@ def sort_gather(pp, skey, order, rev_bits: int):
     return x, y, mask, sd
 
 
+def sort_gather_blocked(n: int, rev_bits: int) -> bool:
+    """Whether the sort_gather kernel fills windows of n lanes with
+    `rev_bits` reversed bits by its block mapping (keys and order read as
+    whole sectors into shared memory, whole lines stored) or a thread a
+    lane: the kernel's own rule."""
+    lib = cuda_lib.library("msm_kernels", _bind)
+    return bool(lib.msm_sort_gather_blocked(n.bit_length() - 1, rev_bits))
+
+
 def walk_down(pos, scanned, levels, rev_bits: int, proj: bool):
     """prefix_sums_at's walk-down: pos (Wc, m) or (m,) int64 positions in
     [-1, n - 1]; `scanned` the stop level's inclusive scan (x, y, z) of
     (24, *batch, s); `levels` the reduce chain's kept levels, the lanes
     first, each (x, y, z or bool mask, is01) of (24, *batch, n_k) (views
     as laid out).  Level k has rev_bits - k reversed bits (none with
-    rev_bits = 0).  Adds with padd (`proj`) or the Jacobian add.  One
+    rev_bits = 0).  Adds with padd (`proj`: each lane's padd split over
+    three threads) or the Jacobian add (a thread a lane).  One
     launch per MAX_LEVELS levels, the highest first, each after the first
     starting from the one before's sums.  Returns (x, y, z) of
     (24, *batch, m), contiguous."""
@@ -214,6 +227,21 @@ def walk_down(pos, scanned, levels, rev_bits: int, proj: bool):
                                 levels[lo:lo + MAX_LEVELS], lo, acc is not None,
                                 rev_bits, proj)
     return acc
+
+
+def walk_down_occupancy(dev=None) -> dict:
+    """The projective walk-down kernel's resources on a CUDA device (the
+    current one by default): blocks of 96 threads an SM holds (the
+    occupancy API), registers and local (spill) bytes a thread, static
+    shared bytes a block."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev is None else dev
+    lib = cuda_lib.library("msm_kernels", _bind)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(dev):
+        err = lib.msm_walk_down_occupancy(out)
+    if err != 0:
+        raise RuntimeError(f"msm_walk_down: occupancy query failed (cudaError {err})")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes"), out))
 
 
 def _walk_down_launch(dev, pos, top, levels, lo, chained, rev_bits, proj):

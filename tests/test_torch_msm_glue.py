@@ -68,9 +68,9 @@ def test_plain_digits_and_sort_gather_match_gemini_tpu():
     extract_signed_digits; the sort keys against the key gemini_tpu's
     _sort_gather_proj builds; the sort-gather (x, y, mask, sd) from the
     port's packed points (pack_points) against gemini_tpu's from its
-    _pack_xy, at Wc = 3 windows of 256 lanes
-    with distinct keys (both sorts are unstable), y = 0 and dead lanes
-    among them, with and without the partial bit reversal."""
+    _pack_xy, at Wc = 3 windows of 256 lanes (rb = 0 and 3) and of 1024
+    and 4096 lanes (rb = 7) with distinct keys (both sorts are unstable),
+    y = 0 and dead lanes among them."""
     rng = np.random.default_rng(1301)
     for c in (7, 13, 16):
         ks = _scalars(rng, c)
@@ -84,18 +84,20 @@ def test_plain_digits_and_sort_gather_match_gemini_tpu():
         want = (np.asarray(mj).astype(np.int64) << 2) | (np.asarray(nj) << 1) | pinf.numpy()
         assert np.array_equal(key.numpy(), want)
 
-    wc, n, N = 3, 256, 300
+    wc, N = 3, 4100
     px, py = _coords(rng, N), _coords(rng, N)
     py[:, 7] = 0  # neg(0) = 0
-    mags = np.stack([rng.permutation(n) for _ in range(wc)]).astype(np.uint32)
-    negs = rng.integers(0, 2, (wc, n)).astype(bool)
     pinf = rng.integers(0, 2, N).astype(bool)
     pp = jmsm._pack_xy(jnp.asarray(px), jnp.asarray(py))
-    key = msm._keys_plain(torch.from_numpy(mags.astype(np.int64)), torch.from_numpy(negs),
-                          torch.from_numpy(pinf[:n]))
-    pp_t = msm.pack_points(torch.from_numpy(px.astype(np.int32))[:, :n],
-                           torch.from_numpy(py.astype(np.int32))[:, :n])
-    for rb in (0, 3):
+    # rb = 7 at n = 2^10 and 2^12: the kernel's lane mapping and, from
+    # n = 2^(rb + 5), its block mapping
+    for rb, n in ((0, 256), (3, 256), (7, 1024), (7, 4096)):
+        mags = np.stack([rng.permutation(n) for _ in range(wc)]).astype(np.uint32)
+        negs = rng.integers(0, 2, (wc, n)).astype(bool)
+        key = msm._keys_plain(torch.from_numpy(mags.astype(np.int64)),
+                              torch.from_numpy(negs), torch.from_numpy(pinf[:n]))
+        pp_t = msm.pack_points(torch.from_numpy(px.astype(np.int32))[:, :n],
+                               torch.from_numpy(py.astype(np.int32))[:, :n])
         jx, jy, jm, jsd = jmsm._sort_gather_proj(
             pp[:, :n], jnp.asarray(pinf[:n]), jnp.asarray(mags), jnp.asarray(negs), rb)
         tx, ty, tm, tsd = msm._sort_gather_proj(pp_t, key, rb)
