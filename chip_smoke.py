@@ -84,12 +84,23 @@ native host library from the sources in the checkout, then, in order:
      Jacobian walk-down beside the projective one, and the gather's
      attribution at the 2^20 plan (one {"msm_glue_kernel_times": ...}
      line);
+  2g. holds the MSM's combine kernel (msm_combine: csrc/msm_kernels.cu)
+     against its plain version (plain_combine: the chain of padd's plain
+     version) bit for bit, and ops/msm.py `_combine` against
+     `_horner_host` and the host sum once normalized, at the (c, W) of
+     the MSM 2^20, 2^18 and 256-lane plans with 1, 2 and 9 sets and an
+     all-identity set, on projective totals and on Jacobian ones (which
+     `_combine` turns projective for the kernel); runs MSMs on the card
+     (msm, GLV, msm_batch) with `_horner_host` and hostcurve.g1_double
+     made to raise, one msm_combine launch per MSM call; times each shape
+     beside the host Horner it replaced (one {"msm_combine_times": ...}
+     line);
   3. runs the kernel MSM pipeline at 2^16 (and at c = 7) against the
      host Pippenger and
      times it at 2^20 on bench.py's inputs, in the projective and in the
      Jacobian configuration (GEMINI_TPU_PROJ=0), and counts the glue
      kernels' launches per MSM 2^20 (one digits and one pack launch, one
-     gather and one walk-down per window chunk; a
+     gather and one walk-down per window chunk, one combine; a
      {"msm_glue_launches_2^20": ...} line);
   4. proves the SNARK and the pSNARK golden instances on the card in
      both configurations, compares the proof bytes (and the pSNARK's
@@ -160,11 +171,13 @@ native host library from the sources in the checkout, then, in order:
      alternating GLV off/on pairs at 2^20 (host clock, printed, not
      claimed); then a 4-shard mesh (four cards when there are four,
      else Mesh([cuda:0] * 4), printed): msm_multichip 2^20 against
-     phase 3, msm_batch_multichip on a fold-tree batch (2^18 ... 2^9)
-     against msm_batch, ShardedTimeProver 2^18 against TimeProver, the
-     2^18 SNARK with mesh= (phase 5's bytes, verified, timed; padd,
-     padd01, mont_mul, sc_message and sc_fold must launch, no host MSM
-     may run), and with
+     phase 3 in both configurations, msm_batch_multichip on a fold-tree
+     batch (2^18 ... 2^9) against msm_batch, one msm_combine launch a
+     call and no host Horner, ShardedTimeProver 2^18 against
+     TimeProver, the 2^18 SNARK with mesh= (phase 5's bytes, verified,
+     timed; padd, padd01, mont_mul, sc_message, sc_fold and the MSM
+     kernels, msm_combine included, must launch, no host MSM or host
+     Horner may run), and with
      mesh= and GEMINI_TPU_GLV=1 in both configurations the golden
      SNARK, the golden elastic SNARKs (CommitterKeyStream and the
      τ = 1 fake key with mesh=) and the golden pSNARK against
@@ -260,7 +273,8 @@ SC_KERNELS = ("sc_message", "sc_fused", "sc_fold")
 FR_SOURCE = "gemini_tpu_torch/csrc/fr_kernels.cu"
 FR_KERNELS = ("fr_mul", "fr_addsub", "fr_reduce", "fr_lane_sum")
 MSM_SOURCE = "gemini_tpu_torch/csrc/msm_kernels.cu"
-MSM_KERNELS = ("msm_digits", "msm_pack", "msm_sort_gather", "msm_walk_down")
+GLUE_KERNELS = ("msm_digits", "msm_pack", "msm_sort_gather", "msm_walk_down")
+MSM_KERNELS = (*GLUE_KERNELS, "msm_combine")
 KERNELS = ("padd", "padd01", "mont_mul", "add", "dbl", "vpu_chain", "copy_add",
            *SC_KERNELS, *FR_KERNELS, *MSM_KERNELS)
 SOURCES = {k: G1_SOURCE for k in KERNELS[:5]}
@@ -296,6 +310,7 @@ REPLACES = {
     "msm_pack": "gemini_tpu/ops/msm.py:178",
     "msm_sort_gather": "gemini_tpu/ops/msm.py:199",
     "msm_walk_down": "gemini_tpu/ops/ec_scan.py:265",
+    "msm_combine": "gemini_tpu/ops/msm.py:153",
 }
 
 
@@ -1871,7 +1886,7 @@ def phase_msm_glue(results):
     check_strided_outputs(results)
 
     times = {}
-    for name in MSM_KERNELS:
+    for name in GLUE_KERNELS:
         res = results[name]
         for n in GLUE_TIMED:
             k = kept[n]
@@ -1941,6 +1956,195 @@ def phase_msm_glue(results):
         if n == GLUE_TIMED[0]:
             results["msm_walk_down"]["jacobian_ms"] = split["msm_walk_down_jacobian"]
     log(json.dumps({"msm_glue_kernel_times": times}))
+
+
+# (c, W) of the MSM 2^20, 2^18 and 256-lane plans, and the sets a combine
+# takes: one MSM, a batch of two, the 2^18 SNARK's batch of nine
+COMBINE_PLANS = ((16, 16), (13, 20), (6, 43))
+COMBINE_SETS = (1, 2, 9)
+
+
+def combine_totals(rnd, sets, windows, proj, identity=False):
+    """Window totals on the card for msm_combine, (x, y, z) of
+    (24, sets * W), set s's window w at column s * W + w: k G (G the
+    generator) with a random z, projective (x z, y z, z) or Jacobian
+    (x z^2, y z^3, z); the identity in every window of set 1 (where there
+    is one), in set 0's top window and in about a tenth of the others, or
+    in every window with `identity`.  Returns the totals and each
+    window's k (0 for the identity)."""
+    from gemini_tpu_torch.fields.fp import FQ
+    from gemini_tpu_torch.hostcurve import g1_mul
+    from gemini_tpu_torch.params import Q, R
+    from gemini_tpu_torch.refimpl import g1_generator
+
+    ks, cols = [], []
+    for i in range(sets * windows):
+        s, w = divmod(i, windows)
+        z = rnd.randrange(1, Q)
+        if identity or s == 1 or (s == 0 and w == windows - 1) or rnd.random() < 0.1:
+            ks.append(0)
+            cols.append((0, 1, 0) if proj else (1, 1, 0))
+            continue
+        ks.append(rnd.randrange(1, R))
+        x, y = g1_mul(g1_generator(), ks[-1])
+        cols.append((x * z % Q, y * z % Q, z) if proj else
+                    (x * z * z % Q, y * pow(z, 3, Q) % Q, z))
+    return tuple(FQ.tensor([col[k] for col in cols], "cuda") for k in range(3)), ks
+
+
+def plain_combine(totals, sets, c):
+    """msm_combine's plain version on the card: every set's chain at once
+    on projective totals, c padd_plain(acc, acc) and one
+    padd_plain(acc, T_w) a window, the highest window first."""
+    from gemini_tpu_torch.curve import g1_kernels as gk
+
+    windows = totals[0].shape[1] // sets
+    acc = tuple(t[:, windows - 1::windows] for t in totals)
+    for w in reversed(range(windows - 1)):
+        for _ in range(c):
+            acc = gk.padd_plain(*acc, *acc)
+        acc = gk.padd_plain(*acc, *(t[:, w::windows] for t in totals))
+    return acc
+
+
+@contextlib.contextmanager
+def no_host_horner():
+    """ops/msm.py `_horner_host` and hostcurve.g1_double made to raise
+    inside the block."""
+    from gemini_tpu_torch import hostcurve
+    from gemini_tpu_torch.ops import msm
+
+    def boom(*a, **k):
+        raise AssertionError("an MSM on CUDA tensors combined on the host")
+
+    saved = msm._horner_host, hostcurve.g1_double
+    msm._horner_host = hostcurve.g1_double = boom
+    try:
+        yield
+    finally:
+        msm._horner_host, hostcurve.g1_double = saved
+
+
+def phase_msm_combine(results):
+    """2g: msm_combine (csrc/msm_kernels.cu) against its plain version
+    (plain_combine), bit for bit, with 9 sets and with one set all
+    identity, on projective totals and on Jacobian ones turned projective
+    (`_jacobian_to_proj`); `_combine` against `_horner_host` (the CPU
+    tensors' combine, on the same totals read back) and the host sum
+    (sum_w 2^(c w) k_w) G, normalized, with 1, 2 and 9 sets, at the MSM
+    2^20, 2^18 and 256-lane plans, projective and Jacobian; MSMs on the
+    card (msm in both configurations, the GLV split, msm_batch) against
+    the host Pippenger with `_horner_host` and hostcurve.g1_double made
+    to raise, one msm_combine launch per MSM call; then each shape timed
+    (guarded events: the kernel, and `_combine` whole with one set)
+    beside the host Horner it replaces (host clock, from and to the
+    card), and one {"msm_combine_times": ...} line."""
+    import torch
+
+    from gemini_tpu_torch.benches.timing import event_ms
+    from gemini_tpu_torch.curve import g1
+    from gemini_tpu_torch.hostcurve import g1_msm, g1_mul
+    from gemini_tpu_torch.ops import msm
+    from gemini_tpu_torch.ops import msm_kernels as mk
+    from gemini_tpu_torch.params import R
+    from gemini_tpu_torch.refimpl import g1_generator
+
+    rnd = random.Random(20261018)
+    res = results.setdefault("msm_combine", {"max_abs_err": 0, "bit_exact": True})
+    times, kept = {}, {}
+    for c, windows in COMBINE_PLANS:
+        for proj in (True, False):
+            config = "projective" if proj else "jacobian"
+            for sets, identity in [(s, False) for s in COMBINE_SETS] + [(1, True)]:
+                what = (f"c = {c}, W = {windows}, {sets} sets, {config}"
+                        + (", every total the identity" if identity else ""))
+                totals, ks = combine_totals(rnd, sets, windows, proj, identity)
+                ptotals = totals if proj else msm._jacobian_to_proj(*totals)
+                if sets == 9 or identity:
+                    res["max_abs_err"] = max(res["max_abs_err"], compare(
+                        "msm_combine", mk.combine(ptotals, sets, c),
+                        plain_combine(ptotals, sets, c), what))
+                jac = msm._proj_to_jacobian(*totals) if proj else totals
+                jac = tuple(t.cpu() for t in jac)
+                host = [g1.decode_jacobian(msm._horner_host(
+                    tuple(t[:, s * windows:(s + 1) * windows] for t in jac), c, "cpu"))[0]
+                    for s in range(sets)]
+                want = []
+                for s in range(sets):
+                    k = sum(kw << (c * w) for w, kw in
+                            enumerate(ks[s * windows:(s + 1) * windows])) % R
+                    want.append(g1_mul(g1_generator(), k) if k else None)
+                with no_host_horner():
+                    out = msm._combine(totals, sets, c, proj)
+                if not (g1.decode_jacobian(out) == host == want):
+                    raise AssertionError(f"msm_combine differs from _horner_host or the "
+                                         f"host sum at {what}")
+                if identity or (not proj and sets > 1):
+                    continue
+                key = f"c{c}_W{windows}_{config}_sets{sets}"
+                steps = (c + 1) * (windows - 1)
+                times[key] = {"chain_steps": steps}
+                if proj:
+                    ms = event_ms(lambda: mk.combine(totals, sets, c), 10,
+                                  spin_cycles=40_000_000)
+                    times[key].update(ms=ms, us_per_step=ms * 1e3 / steps)
+                    kept[key] = (totals, sets, c)
+                if sets == 1:
+                    times[key]["combine_ms"] = event_ms(
+                        lambda: msm._combine(totals, sets, c, proj), 10,
+                        spin_cycles=40_000_000)
+                    cuda_jac = msm._proj_to_jacobian(*totals) if proj else totals
+                    times[key]["host_horner_ms"] = plain_ms(
+                        lambda: msm._horner_host(cuda_jac, c, totals[0].device))
+    log(f"msm_combine: bit-exact against plain_combine and _combine equal to "
+        f"_horner_host and the host sum at {COMBINE_PLANS} with {COMBINE_SETS} sets "
+        "and all-identity sets, projective and Jacobian totals")
+
+    pts, sc, s_np, host_pts = bench_msm_inputs(1 << 14)
+    n = pts.x.shape[1]
+    ks = [sum(int(s_np[i, j]) << (16 * i) for i in range(s_np.shape[0])) for j in range(n)]
+    hp = [host_pts[j % 512] for j in range(n)]
+    want = g1_msm(hp, ks)
+    calls = 0
+    mk.reset_launches()
+    with no_host_horner():
+        for config, ctx in (("projective", contextlib.nullcontext),
+                            ("jacobian", jacobian_config)):
+            with ctx():
+                if g1.decode_jacobian(msm.msm(pts, sc))[0] != want:
+                    raise AssertionError(f"MSM 2^14 ({config}) differs from the host")
+                calls += 1
+        if g1.decode_jacobian(msm.msm(pts, sc, glv=True))[0] != want:
+            raise AssertionError("GLV MSM 2^14 differs from the host")
+        batch = msm.msm_batch(pts, [sc, sc[:, :1000], torch.zeros_like(sc[:, :300])])
+        calls += 2  # the GLV MSM and the batch
+        got = [g1.decode_jacobian(r)[0] for r in batch]
+        if got != [want, g1_msm(hp[:1000], ks[:1000]), None]:
+            raise AssertionError("msm_batch 2^14 differs from the host")
+    torch.cuda.synchronize()
+    if mk.LAUNCHES["msm_combine"] != calls or mk.LANES["msm_combine"] != calls + 2:
+        raise AssertionError(f"msm_combine: {mk.LAUNCHES['msm_combine']} launches, "
+                             f"{mk.LANES['msm_combine']} sets for {calls} MSM calls")
+    log(f"msm_combine: {calls} MSMs on the card (projective, Jacobian, GLV, a batch "
+        "of 3) equal the host Pippenger, one launch each, no host Horner")
+
+    top = "c16_W16_projective_sets1"
+    totals, sets, c = kept[top]
+    windows = totals[0].shape[1] // sets
+    steps = (c + 1) * (windows - 1)
+    # one serial chain of padds a set: neither bytes nor IMADs bound it,
+    # and no latency bound is measured apart from the kernel itself
+    res.update(ms=times[top]["ms"], plain_ms=times[top]["host_horner_ms"], library_ms=None,
+               lanes=sets, source=MSM_SOURCE,
+               bytes=sets * (windows * 3 * 48 + 3 * 48),
+               imads=sets * steps * WORD_PRODUCTS["padd"] * 2, bound_ms=None,
+               bound_by=f"none: latency, a serial chain of (c + 1)(W - 1) = {steps} padds")
+    for key in ("c13_W20_projective_sets1", "c6_W43_projective_sets1",
+                "c16_W16_projective_sets9"):
+        res[f"ms_{key}"] = times[key]["ms"]
+    for key in ("c16_W16_projective_sets1", "c16_W16_jacobian_sets1"):
+        res[f"combine_ms_{key}"] = times[key]["combine_ms"]
+    log(json.dumps({"msm_combine_times": times}))
 
 
 # ---------------------------------------------------------------------------
@@ -2054,7 +2258,7 @@ def phase_msm():
     c, wc = plan_window(n)
     chunks = -(-(-(-N_BITS // c)) // wc)
     want = {"msm_digits": 1, "msm_pack": 1, "msm_sort_gather": chunks,
-            "msm_walk_down": chunks}
+            "msm_walk_down": chunks, "msm_combine": 1}
     glue = {}
     for config, ctx in (("projective", contextlib.nullcontext), ("jacobian",
                                                                  jacobian_config)):
@@ -2886,16 +3090,29 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
         out["mesh_kind"] = f"{MESH_SIZE} shards on one card"
     out["mesh"] = [str(d) for d in mesh.devices]
     log(f"mesh: {out['mesh_kind']}, {out['mesh']}")
-    got = timed("msm_multichip_2^20", lambda: decode(msm_multichip(
-        pts, sc, devices=mesh.devices)))
-    if got != msm_out["projective"]:
-        raise AssertionError("msm_multichip 2^20 differs from msm")
-    sets = [sc[:, :1 << k] for k in range(18, 8, -1)]
-    single = timed("msm_batch_fold_tree", lambda: [decode(r) for r in msm_batch(pts, sets)])
-    multi = timed("msm_batch_multichip_fold_tree", lambda: [
-        decode(r) for r in msm_batch_multichip(pts, sets, devices=mesh.devices)])
-    if single != multi:
-        raise AssertionError("msm_batch_multichip (2^18 ... 2^9) differs from msm_batch")
+    # the shards' totals are added and combined on the card: one
+    # msm_combine launch a call, no host Horner
+    mk.reset_launches()
+    with no_host_horner():
+        got = timed("msm_multichip_2^20", lambda: decode(msm_multichip(
+            pts, sc, devices=mesh.devices)))
+        if got != msm_out["projective"]:
+            raise AssertionError("msm_multichip 2^20 differs from msm")
+        with jacobian_config():
+            if decode(msm_multichip(pts, sc, devices=mesh.devices)) != msm_out["jacobian"]:
+                raise AssertionError("msm_multichip 2^20, GEMINI_TPU_PROJ=0, differs "
+                                     "from msm")
+        sets = [sc[:, :1 << k] for k in range(18, 8, -1)]
+        single = timed("msm_batch_fold_tree",
+                       lambda: [decode(r) for r in msm_batch(pts, sets)])
+        multi = timed("msm_batch_multichip_fold_tree", lambda: [
+            decode(r) for r in msm_batch_multichip(pts, sets, devices=mesh.devices)])
+        if single != multi:
+            raise AssertionError("msm_batch_multichip (2^18 ... 2^9) differs from msm_batch")
+    if (mk.LAUNCHES["msm_combine"], mk.LANES["msm_combine"]) != (4, 2 + 2 * len(sets)):
+        raise AssertionError(f"the mesh MSMs: {mk.LAUNCHES['msm_combine']} msm_combine "
+                             f"launches, {mk.LANES['msm_combine']} sets; want 4 and "
+                             f"{2 + 2 * len(sets)}")
 
     n = 1 << 18
     gen = torch.Generator(device="cuda").manual_seed(18)
@@ -2924,8 +3141,9 @@ def phase_mesh_glv(results, card, msm_in, msm_out, r1cs, ck, proof_18):
     reset_fr()
     hostcurve.g1_msm_pippenger = counted
     try:
-        proof = timed("snark_2^18_mesh_prove", lambda: Proof.new_time(r1cs, ck,
-                                                                    mesh=mesh))
+        with no_host_horner():
+            proof = timed("snark_2^18_mesh_prove", lambda: Proof.new_time(r1cs, ck,
+                                                                        mesh=mesh))
     finally:
         hostcurve.g1_msm_pippenger = pippenger
     mesh_launches, mesh_lanes = dict(gk.LAUNCHES), dict(gk.LANES)
@@ -3077,7 +3295,8 @@ OWN_KERNELS = {"padd01_kernel": "padd01", "padd_kernel": "padd",
                "msm_digits_kernel": "msm_digits", "msm_pack_kernel": "msm_pack",
                "msm_sort_gather_kernel": "msm_sort_gather",
                "msm_walk_down_kernel": "msm_walk_down",
-               "msm_walk_down_split_kernel": "msm_walk_down"}
+               "msm_walk_down_split_kernel": "msm_walk_down",
+               "msm_combine_kernel": "msm_combine"}
 # ptxas's lines per kernel: the Jacobian walk-down (a thread a lane) apart
 # from the projective one (split), which is the table's row.
 ALL_KERNELS = {**OWN_KERNELS, "msm_walk_down_kernel": "msm_walk_down_jacobian",
@@ -3386,9 +3605,10 @@ def kernel_rows(results, rates, usage):
             "library_ms": r["library_ms"],
             "bound_ms_measured_rate": bound_meas,
             "bound_by_measured_rate": by_meas,
-            "bound_share": bound / r.get("device_ms", r["ms"]),
+            "bound_share": (bound / r.get("device_ms", r["ms"])
+                            if bound is not None else None),
             "library_bound_share": (bound / r.get("library_device_ms", r["library_ms"])
-                                    if r["library_ms"] else None),
+                                    if r["library_ms"] and bound is not None else None),
             "bit_exact": r["bit_exact"], "lanes": r["lanes"],
             **usage.get(name, {}),
             **{f"{k}_jacobian": v for k, v in usage.get(f"{name}_jacobian", {}).items()},
@@ -3398,7 +3618,7 @@ def kernel_rows(results, rates, usage):
                 r["lanes"] * ADD_WORD_PRODUCTS_23MM * 2 / IMAD_PER_S * 1e3)
         for key, v in r.items():
             if key.startswith(("ms_", "lanes_per", "psnark_", "elastic_", "float32",
-                               "glv_", "mesh_", "resident_", "jacobian_",
+                               "glv_", "mesh_", "resident_", "jacobian_", "combine_ms_",
                                "device_ms", "library_device", "library_ms_", "bound_ms_",
                                "bound_rate", "bound_share_", "library_bound_share_")):
                 rows[-1][key] = v
@@ -3434,6 +3654,7 @@ def main() -> int:
     phase("2d sumcheck kernels", phase_sumcheck_kernels, results, usage)
     phase("2e Fr kernels", phase_fr_kernels, results)
     phase("2f MSM glue kernels", phase_msm_glue, results)
+    phase("2g MSM combine", phase_msm_combine, results)
     msm_in, msm_out = phase("3 MSM", phase_msm)
     phase("4 golden", phase_golden)
     r1cs, ck, proof_18 = phase("5 projective 2^18", phase_full, results, False)

@@ -26,10 +26,19 @@
 //   msm_walk_down    replaces gemini_tpu/ops/ec_scan.py `prefix_sums_at`'s
 //                    walk-down (:265): the gather at the stop level's scan
 //                    and every level's fix-up add, one launch per chunk.
+//   msm_combine      replaces gemini_tpu/ops/msm.py `_horner_host` (:153),
+//                    which reads the W window totals back and combines
+//                    sum_w 2^(c w) T_w on the host: here each set's
+//                    Horner chain (c doublings and one add a window, the
+//                    highest window first) runs on the card, one launch
+//                    per MSM for all its sets, and the result stays there.
+//                    Projective only: ops/msm.py `_combine` hands it
+//                    Jacobian totals as (X Z, Y, Z^3).
 //
 // Each equals its plain PyTorch version (ops/msm.py `_digits_plain`,
 // `_pack_plain`, `_sort_gather_plain`; ops/ec_scan.py
-// `_walk_down_plain`) bit for bit:
+// `_walk_down_plain`; msm_combine: the chain of padd_core on the same
+// operands, and so `_horner_host` once normalized to affine) bit for bit:
 // the same digits with every limb a window spans read (gemini_tpu's
 // extract_digits reads two limbs at most and drops bits at c = 19), the
 // negation is fq::fsub(0, y), which is fields/fp.py's neg (0 - y, plus p
@@ -65,6 +74,10 @@
 //   over the plans, 8 warps an SM at the 2^20 plan with a thread a lane,
 //   where padd needs 12 to reach three quarters of its bound, and each
 //   padd is one chain of carries.
+// - msm_combine: latency.  Each set is one serial chain of c (W - 1)
+//   doublings and W - 1 adds (255 at the 2^20 plan, c = 16, W = 16),
+//   and an MSM has 1 to about 20 sets: one SM, a warp or three, and
+//   each step waits on the one before.
 //
 // The design:
 // - digits: a thread per scalar, walking the windows in order with the
@@ -100,6 +113,12 @@
 //   the sums the one before wrote.
 // - The pack runs once per MSM (per shard), the gather once per chunk:
 //   at 2^20 lanes 16 chunks read the same points.
+// - combine: three threads a set, one warp per role, as in
+//   the walk-down (each doubling is padd_core(acc, acc), which is
+//   complete, so the identity needs no branch): 1.00 ms at the 2^20
+//   plan, where a thread a set with padd_core took 2.58 ms, and a thread
+//   a set with the Jacobian dbl_core and add_core 1.90 ms (NVIDIA H100
+//   80GB HBM3, 700 W).
 
 #include <cuda_runtime.h>
 
@@ -436,6 +455,49 @@ __global__ void __launch_bounds__(g1::kSplitThreads, kSplitBlocks)
   if (t0 < d.lanes) fq::store(d.out[role], d.lanes, t, acc);
 }
 
+struct Combine {
+  g1::Operand in[3];  // x, y, z of (24, sets * W): set s's window w at
+                      // batch s, lane w
+  int sets, windows, c;
+  int32_t* out[3];  // (24, sets)
+};
+
+// acc = T_(W-1); then for w = W - 2 down to 0, c doublings and acc += T_w,
+// on projective totals (< 2p, identity (0 : y : 0), y nonzero): each set's padd split over three threads (g1_core.cuh
+// padd_split_*), one warp per role, a block per kSplitLanes sets; role r
+// keeps coordinate r of the accumulator and puts it, with coordinate r
+// of the operand (the accumulator itself for a doubling, else T_w, read
+// before the window's doublings), into the exchange before each padd.
+// The threads of sets past the last run with the last set's operands and
+// store nothing.
+__global__ void __launch_bounds__(g1::kSplitThreads)
+    msm_combine_kernel(const __grid_constant__ Combine d) {
+  __shared__ __align__(16) uint32_t ex[g1::kSplitWords];
+  const int role = threadIdx.x / g1::kSplitLanes;
+  const unsigned l = threadIdx.x % g1::kSplitLanes;
+  const unsigned s0 = blockIdx.x * g1::kSplitLanes + l;
+  const unsigned s = s0 < (unsigned)d.sets ? s0 : d.sets - 1;
+  const g1::SplitLane lane{ex + fq::NW * l};
+  F acc = g1::load_op(d.in[role], s, d.windows - 1);
+  int x = 0;  // the set that holds the accumulator and the operand
+  for (int w = d.windows - 2; w >= 0; --w) {
+    const F op = g1::load_op(d.in[role], s, w);
+    for (int k = 0; k <= d.c; ++k) {
+      const int y = g1::kSplitSet - x;
+      lane.put(x + role, acc);
+      lane.put(x + 3 + role, k < d.c ? acc : op);
+      __syncthreads();
+      g1::padd_split_products(role, lane, x, y);
+      __syncthreads();
+      g1::padd_split_finals(role, lane, y, x);
+      __syncthreads();
+      acc = g1::padd_split_result(role, lane, x);
+      x = y;
+    }
+  }
+  if (s0 < (unsigned)d.sets) fq::store(d.out[role], d.sets, s, acc);
+}
+
 unsigned blocks_for(long long n, int t) { return (unsigned)((n + t - 1) / t); }
 
 g1::Operand operand(const long long* q) {
@@ -525,6 +587,26 @@ extern "C" int msm_walk_down(const long long* levels, int nlev, int lo, int chai
     const int t = g1::threads_for(lanes);
     msm_walk_down_kernel<<<blocks_for(lanes, t), t, 0, (cudaStream_t)stream>>>(d);
   }
+  return (int)cudaGetLastError();
+}
+
+// in: the totals' x, y, z (pointer, limb, batch and lane strides: 12
+// values), set s's window w at batch s, lane w.
+extern "C" int msm_combine(const long long* in, int sets, int windows, int c,
+                           int32_t* ox, int32_t* oy, int32_t* oz, void* stream) {
+  if (sets < 0 || windows < 1 || c < 1 || (long long)sets * windows >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  if (sets == 0) return 0;
+  Combine d;
+  for (int k = 0; k < 3; ++k) d.in[k] = operand(in + 4 * k);
+  d.sets = sets;
+  d.windows = windows;
+  d.c = c;
+  d.out[0] = ox;
+  d.out[1] = oy;
+  d.out[2] = oz;
+  msm_combine_kernel<<<blocks_for(sets, g1::kSplitLanes), g1::kSplitThreads, 0,
+                       (cudaStream_t)stream>>>(d);
   return (int)cudaGetLastError();
 }
 

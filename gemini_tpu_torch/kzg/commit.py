@@ -244,7 +244,9 @@ class CommitterKey:
             idxs = groups[b]
             for i, r in zip(idxs, run([canon[i] for i in idxs])):
                 results[i] = r
-        return [g1.decode_jacobian(r)[0] for r in results]
+        # one readback for every group's results
+        return g1.decode_jacobian(JPoint(*(torch.cat(coord, dim=1)
+                                           for coord in zip(*results))))
 
     def open(self, coeffs, alpha: int):
         """-> (evaluation, proof): commitment to the quotient

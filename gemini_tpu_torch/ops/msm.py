@@ -13,7 +13,9 @@ batched launch of a hand-written CUDA kernel: padd01 at level 0 and
 padd elsewhere (projective, the default), or the Jacobian add kernel
 when GEMINI_TPU_PROJ=0 (`_use_proj`).  Digits are SIGNED (magnitude
 <= 2^(c-1); negative digits negate the point during the sort).  The
-final Horner combine over the O(W) window totals runs on the host.
+final Horner combine over the O(W) window totals, sum_w 2^(c w) T_w,
+runs on the card too: one msm_combine launch per MSM for all its sets
+(`_combine`), and the result stays there until the caller reads it.
 
 The glue between those launches is on the card too (ops/msm_kernels.py):
 the digits of all windows and the sort keys in one msm_digits launch per
@@ -21,7 +23,8 @@ MSM, and per chunk, after torch.sort and before torch.searchsorted, one
 msm_sort_gather launch and one msm_walk_down launch, and the points
 packed for those gathers by one msm_pack launch per MSM.  The plain
 versions (`_digits_plain`, `_pack_plain`, `_sort_gather_plain`,
-ec_scan's `_walk_down_plain`) run on CPU tensors only.
+ec_scan's `_walk_down_plain`, and `_horner_host` for the combine) run
+on CPU tensors only.
 
 Scalars enter in canonical (non-Montgomery) limb form, reduced (< R);
 points as affine with infinity masks.  Small MSMs (n <= 4096) run on
@@ -160,9 +163,28 @@ def _keys_plain(mags, negs, pinf, flip=None):
     return (mags << 2) | (negs.to(torch.int64) << 1) | pinf.to(torch.int64)
 
 
+def _combine(totals, sets: int, c: int, use_proj: bool) -> JPoint:
+    """Each set's sum_w 2^(c w) T_w from the (L, sets * W) window
+    totals of `_run_chunks` (set i's windows at columns i * W ..), as a
+    Jacobian JPoint of batch (sets,).  CUDA tensors: Jacobian totals
+    (`use_proj` False) to projective, one msm_combine launch, then
+    `_proj_to_jacobian` on the (L, sets) results, all on the card; CPU
+    tensors: `_horner_host` per set."""
+    if totals[0].is_cuda:
+        if not use_proj:
+            totals = _jacobian_to_proj(*totals)
+        return JPoint(*_proj_to_jacobian(*msm_kernels.combine(totals, sets, c)))
+    if use_proj:
+        totals = _proj_to_jacobian(*totals)
+    w = totals[0].shape[1] // sets
+    parts = [_horner_host(tuple(t[:, i * w:(i + 1) * w] for t in totals), c,
+                          totals[0].device) for i in range(sets)]
+    return JPoint(*(torch.cat(coord, dim=1) for coord in zip(*parts)))
+
+
 def _horner_host(totals_jac, c: int, device) -> JPoint:
     """result = sum_w 2^(c*w) * T_w, combined on the host over the
-    O(W) window totals."""
+    O(W) window totals (the CPU tensors' combine)."""
     from ..hostcurve import g1_add, g1_double
 
     pts = g1.decode_jacobian(JPoint(*totals_jac))
@@ -250,6 +272,16 @@ def _proj_to_jacobian(x, y, z):
     z2 = fp.mont_mul(FQ, z, z)
     yz2 = fp.mont_mul(FQ, y, z2)
     return xz, yz2, fp.mont_mul(FQ, z, FQ.ones_mont(z.shape[1:], z.device))
+
+
+def _jacobian_to_proj(x, y, z):
+    """Jacobian (X, Y, Z), canonical, -> (X Z : Y : Z^3), the same affine
+    point (X / Z^2, Y / Z^3); the Jacobian identity (z = 0, y nonzero, as
+    the add and dbl kernels leave it) maps to (0 : y : 0).  Two mont_mul
+    launches on CUDA tensors: [X, Z] [Z, Z], then Z^2 Z."""
+    n = x.shape[1]
+    prod = fp.mont_mul(FQ, torch.cat([x, z], dim=1), torch.cat([z, z], dim=1))
+    return prod[:, :n], y, fp.mont_mul(FQ, prod[:, n:], z)
 
 
 def _use_proj() -> bool:
@@ -400,9 +432,7 @@ def _msm_glv(points: APoint, scalars, c: int | None = None) -> JPoint:
     use_proj = _use_proj()
     totals = _run_chunks(_glv_double_points(points), keys, c, window_chunk,
                          use_proj)
-    if use_proj:
-        totals = _proj_to_jacobian(*totals)
-    return _horner_host(totals, c, points.x.device)
+    return _combine(totals, 1, c, use_proj)
 
 
 def msm(points: APoint, scalars, c: int | None = None, n_bits: int = N_BITS,
@@ -430,9 +460,7 @@ def msm(points: APoint, scalars, c: int | None = None, n_bits: int = N_BITS,
     keys = digit_keys(scalars, c, n_bits, points.inf)
     use_proj = _use_proj()
     totals = _run_chunks(points, keys, c, window_chunk, use_proj)
-    if use_proj:
-        totals = _proj_to_jacobian(*totals)
-    return _horner_host(totals, c, points.x.device)
+    return _combine(totals, 1, c, use_proj)
 
 
 def msm_mont_scalars(points: APoint, scalars_mont, c: int | None = None,
@@ -455,8 +483,8 @@ def msm_batch(points: APoint, scalars_sets, c: int | None = None,
     set i (canonical (FR_LIMBS, n_i)) is multiplied against
     points[:n_i].  All sets are zero-padded to a common pow-4 bucket and
     their windows stacked on the window-chunk axis, so S small MSMs
-    share each chunk's batched kernel launches.  Returns a list of
-    JPoint results, one per set."""
+    share each chunk's batched kernel launches, and one combine.
+    Returns a list of JPoint results of batch (1,), one per set."""
     sets = list(scalars_sets)
     if not sets:
         return []
@@ -494,17 +522,10 @@ def msm_batch(points: APoint, scalars_sets, c: int | None = None,
             keys_l.append(_glv_window_keys(*glv_mod.decompose(s), c, points.inf))
         else:
             keys_l.append(digit_keys(s, c, n_bits, points.inf))
-    W = keys_l[0].shape[0]
     keys = torch.cat(keys_l, dim=0)  # (S*W, lanes)
     if glv:
         points = _glv_double_points(points)
     use_proj = _use_proj()
     totals = _run_chunks(points, keys, c, window_chunk, use_proj)
-    if use_proj:
-        totals = _proj_to_jacobian(*totals)
-    tot = [t.cpu() for t in totals]  # one readback for all sets
-    return [
-        _horner_host(tuple(t[:, i * W:(i + 1) * W] for t in tot), c,
-                     points.x.device)
-        for i in range(len(sets))
-    ]
+    res = _combine(totals, len(sets), c, use_proj)
+    return [JPoint(*(t[:, i:i + 1] for t in res)) for i in range(len(sets))]

@@ -13,20 +13,26 @@ ops/msm.py and ops/ec_scan.py send the chunk's glue on CUDA tensors here:
   walk_down    <- gemini_tpu/ops/ec_scan.py `prefix_sums_at`'s walk-down
                   (:265): the top gather and every level's add, one
                   launch per chunk (per MAX_LEVELS levels)
+  combine      <- gemini_tpu/ops/msm.py `_horner_host` (:153): each set's
+                  sum_w 2^(c w) T_w over its window totals, one launch
+                  per MSM, the result left on the card
 
 The reference has no Pallas kernel there (each is inside one jitted
-program per chunk).  The kernels are CUDA C++ (csrc/msm_kernels.cu over
-csrc/g1_core.cuh and csrc/fq.cuh), compiled with nvcc for sm_90a at first
-use into `_build/` and bound with ctypes; their plain versions are
+program per chunk, and the combine runs on the host).  The kernels are
+CUDA C++ (csrc/msm_kernels.cu over csrc/g1_core.cuh and csrc/fq.cuh),
+compiled with nvcc for sm_90a at first use into `_build/` and bound with
+ctypes; their plain versions are
 ops/msm.py's `_digits_plain`, `_pack_plain` and `_sort_gather_plain` and
-ops/ec_scan.py's `_walk_down_plain`, which they equal bit for bit.  Those modules take the
-plain versions only for CPU tensors; these wrappers launch on the current
-stream or raise.
+ops/ec_scan.py's `_walk_down_plain`, which they equal bit for bit; the
+combine equals the chain of padd plain versions, and `_horner_host`
+once normalized.  Those modules take the plain versions
+only for CPU tensors; these wrappers launch on the current stream or
+raise.
 
 `LAUNCHES` counts kernel launches and `LANES` the lanes they covered (the
 digits and the pack: scalars and points; the gather: output lanes; the
-walk-down: positions); the
-plain path counts neither.
+walk-down: positions; the combine: sets); the plain path counts
+neither.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from ..curve.g1_kernels import lane_strides
 L = 24  # Fq limbs
 MAX_LEVELS = 8  # csrc/msm_kernels.cu kMaxLevels: reduce-chain levels a walk-down launch takes
 
-LAUNCHES = {"msm_digits": 0, "msm_pack": 0, "msm_sort_gather": 0, "msm_walk_down": 0}
+LAUNCHES = {"msm_digits": 0, "msm_pack": 0, "msm_sort_gather": 0, "msm_walk_down": 0,
+            "msm_combine": 0}
 LANES = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -57,10 +64,12 @@ def _bind(lib):
     lib.msm_pack.argtypes = [p, n, n, p, n, n, n, p, p]
     lib.msm_sort_gather.argtypes = [p, p, p, i, i, n, p, p, p, p, p]
     lib.msm_walk_down.argtypes = [p, i, i, i, p, p, n, n, p, p, p, i, p]
+    lib.msm_combine.argtypes = [p, i, i, i, p, p, p, p]
     lib.msm_walk_down_occupancy.argtypes = [p]
     lib.msm_sort_gather_blocked.argtypes = [i, i]
     for fn in (lib.msm_digits, lib.msm_pack, lib.msm_sort_gather, lib.msm_walk_down,
-               lib.msm_walk_down_occupancy, lib.msm_sort_gather_blocked):
+               lib.msm_combine, lib.msm_walk_down_occupancy,
+               lib.msm_sort_gather_blocked):
         fn.restype = ctypes.c_int
 
 
@@ -227,6 +236,37 @@ def walk_down(pos, scanned, levels, rev_bits: int, proj: bool):
                                 levels[lo:lo + MAX_LEVELS], lo, acc is not None,
                                 rev_bits, proj)
     return acc
+
+
+def combine(totals, sets: int, c: int):
+    """sum_w 2^(c w) T_w for each of `sets` sets of W window totals:
+    `totals` (x, y, z) of (24, sets * W) int32, set s's window w at
+    column s * W + w (as ops/msm.py `_run_chunks` returns them),
+    projective and relaxed (< 2p), identity (0 : y : 0) with y nonzero.
+    Returns (x, y, z) of (24, sets), projective and relaxed: c doublings
+    and one add a window from the highest down, each padd split over
+    three threads."""
+    name = "msm_combine"
+    dev = _device(name, *totals)
+    for t in totals:
+        _dtype(name, t, torch.int32)
+        if t.ndim != 2 or t.shape != totals[0].shape or t.shape[0] != L:
+            raise ValueError(f"{name}: totals must be ({L}, sets * W), got "
+                             f"{[tuple(u.shape) for u in totals]}")
+    n = totals[0].shape[1]
+    if sets < 1 or n % sets or n == 0:
+        raise ValueError(f"{name}: {n} totals do not split into {sets} sets")
+    if c < 1:
+        raise ValueError(f"{name}: window of {c} bits")
+    w = n // sets
+    desc = [v for t in totals for v in (t.data_ptr(), t.stride(0), w * t.stride(1),
+                                        t.stride(1))]
+    out = [torch.empty((L, sets), dtype=torch.int32, device=dev) for _ in range(3)]
+    _run(name, dev, name, (ctypes.c_longlong * 12)(*desc), sets, w, c,
+         *(o.data_ptr() for o in out))
+    LAUNCHES[name] += 1
+    LANES[name] += sets
+    return tuple(out)
 
 
 def walk_down_occupancy(dev=None) -> dict:

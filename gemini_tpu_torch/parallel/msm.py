@@ -3,9 +3,11 @@ gemini_tpu/parallel/msm.py).
 
 An MSM is a sum: partition (points, scalars) across D devices, run the
 single-device window pipeline (ops/msm.py `_run_chunks`) on each
-shard's lanes on its own device, read every shard's window totals back
-at once, and add the D partials per window on the host before the
-Horner combine.  The bucket phase needs no traffic between shards.
+shard's lanes on its own device, move every shard's window totals to
+the first device, add the D partials per window there (one padd, or
+Jacobian add, launch per further shard) and combine them as one MSM
+does (ops/msm.py `_combine`: one msm_combine launch for all sets on a
+card).  The bucket phase needs no traffic between shards.
 
 Every shard gets the same padded width, bucket4(ceil(lanes / D),
 floor=256), with (infinity, 0) padding lanes; with GLV the lanes are
@@ -23,23 +25,21 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from ..curve import g1
 from ..curve.g1 import APoint, JPoint
-from ..hostcurve import g1_add, g1_double
 from ..ops import scan as scan_util
 from ..ops.msm import (
     N_BITS,
+    _combine,
     _glv_double_points,
     _glv_plan,
     _glv_window_keys,
     _host_msm_max,
-    _jpoint_from_host,
     _msm_host,
     _pad_points_scalars,
-    _proj_to_jacobian,
     _run_chunks,
     _use_glv,
     _use_proj,
+    combiners,
     digit_keys,
     msm,
     msm_batch,
@@ -56,40 +56,22 @@ def _devices(devices: Optional[Sequence]) -> list:
 
 
 def _shard_totals(points: APoint, keys, devs, per: int, c: int,
-                  window_chunk: int):
-    """Each shard's window totals (Jacobian, (L, W) per coordinate), run
-    on its own device, then ONE readback: a list of d lists of W host
-    points, in shard order."""
+                  window_chunk: int, sets: int) -> JPoint:
+    """Each shard's window totals, run on its own device and moved to the
+    first, added there window by window in shard order, then combined
+    per set (`sets` sets of W = keys.shape[0] / sets windows): a JPoint
+    of batch (sets,) on devs[0]."""
     use_proj = _use_proj()
-    dev0 = devs[0]
-    cols = []
+    add = combiners(use_proj)[0]
+    acc = None
     for i, dev in enumerate(devs):
         sl = slice(i * per, (i + 1) * per)
         pts = APoint(points.x[:, sl].to(dev), points.y[:, sl].to(dev),
                      points.inf[sl].to(dev))
-        tot = _run_chunks(pts, keys[:, sl].to(dev), c, window_chunk, use_proj)
-        if use_proj:
-            tot = _proj_to_jacobian(*tot)
-        cols.append([t.to(dev0) for t in tot])
-    W = keys.shape[0]
-    tot = [torch.cat([col[k] for col in cols], dim=1).cpu() for k in range(3)]
-    pts = g1.decode_jacobian(JPoint(*tot))
-    return [pts[i * W:(i + 1) * W] for i in range(len(devs))]
-
-
-def _horner(shard_pts, w0: int, W: int, c: int):
-    """sum_w 2^(c w) sum_i T_(i, w0 + w) on the host, the d partials of
-    each window added in shard order."""
-    acc = None
-    for w in reversed(range(W)):
-        if acc is not None:
-            for _ in range(c):
-                acc = g1_double(acc)
-        part = None
-        for pts in shard_pts:
-            part = g1_add(part, pts[w0 + w])
-        acc = g1_add(acc, part)
-    return acc
+        tot = tuple(t.to(devs[0]) for t in _run_chunks(
+            pts, keys[:, sl].to(dev), c, window_chunk, use_proj))
+        acc = tot if acc is None else add(acc, tot)
+    return _combine(acc, sets, c, use_proj)
 
 
 def _pad_lanes(points: APoint, keys, npad: int):
@@ -129,9 +111,8 @@ def msm_multichip(points: APoint, scalars, devices: Optional[Sequence] = None,
     else:
         keys = digit_keys(scalars, c, n_bits, points.inf)
     points, keys = _pad_lanes(points, keys, npad_lanes)
-    shard_pts = _shard_totals(points, keys, devs, per, c, window_chunk)
-    return _jpoint_from_host(_horner(shard_pts, 0, keys.shape[0], c),
-                             points.x.device)
+    res = _shard_totals(points, keys, devs, per, c, window_chunk, 1)
+    return JPoint(*(t.to(points.x.device) for t in res))
 
 
 def msm_batch_multichip(points: APoint, scalars_sets,
@@ -140,9 +121,9 @@ def msm_batch_multichip(points: APoint, scalars_sets,
                         host_max: int | None = None) -> List[JPoint]:
     """Many MSMs over PREFIXES of one base array, sharded over devices:
     the multi-device twin of ops/msm.msm_batch.  Every set's windows
-    stack on the window axis of the same per-shard pipeline; one
-    readback gives every set's per-shard window totals, combined on the
-    host.  Scalars enter canonical (< R).  Returns one JPoint per set."""
+    stack on the window axis of the same per-shard pipeline, and one
+    combine takes every set's shard-summed totals.  Scalars enter
+    canonical (< R).  Returns one JPoint of batch (1,) per set."""
     sets = list(scalars_sets)
     if not sets:
         return []
@@ -185,10 +166,9 @@ def msm_batch_multichip(points: APoint, scalars_sets,
             keys_l.append(_glv_window_keys(*glv_mod.decompose(s), c, points.inf))
         else:
             keys_l.append(digit_keys(s, c, n_bits, points.inf))
-    W = keys_l[0].shape[0]
     keys = torch.cat(keys_l, dim=0)  # (S*W, lanes)
     if use_glv:
         points = _glv_double_points(points)
-    shard_pts = _shard_totals(points, keys, devs, per, c, window_chunk)
-    return [_jpoint_from_host(_horner(shard_pts, si * W, W, c), points.x.device)
-            for si in range(len(sets))]
+    res = _shard_totals(points, keys, devs, per, c, window_chunk, len(sets))
+    res = [t.to(points.x.device) for t in res]
+    return [JPoint(*(t[:, i:i + 1] for t in res)) for i in range(len(sets))]
