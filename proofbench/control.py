@@ -2,10 +2,10 @@
 
 The system states no precision; its guarantee is that a proof's bytes
 are the protocol's.  The control breaks it where a later change to the
-MSM pipeline would be tempted to: the reference is put in the program's
-place with every commitment worked out from scalars cut to their low 253
-bits, as an MSM that leaves out its top window would.  The comparison
-has to find it not correct on every seed.
+MSM pipeline would be tempted to: the configuration's reference is put
+in the program's place with every commitment worked out from scalars cut
+to their low 253 bits, as an MSM that leaves out its top window would.
+The comparison has to find it not correct on every seed.
 
     python3 proofbench/control.py --workload <cell> --seeds <n> <n> <n>
 
@@ -29,8 +29,8 @@ if ROOT not in sys.path:
 
 import torch  # noqa: E402
 
-from proofbench import correct, instances, spec  # noqa: E402
-from proofbench.reference import fr, snark as ref  # noqa: E402
+from proofbench import correct, spec  # noqa: E402
+from proofbench.reference import fr  # noqa: E402
 
 KEPT_BITS = 253
 
@@ -44,19 +44,25 @@ def truncate(v: torch.Tensor) -> torch.Tensor:
     return fr.from_canonical(canon)
 
 
-def control_proof(statement, key):
-    p = ref.prove(statement, key, commit_filter=truncate)
-    return ref.parts(p), ref.proof_bytes(p)
+def control_proof(reference, statement, key):
+    """The parts and bytes of `reference`'s proof with every committed
+    vector truncated."""
+    p = reference.prove(statement, key, commit_filter=truncate)
+    return reference.parts(p), reference.proof_bytes(p)
 
 
-def cell_inputs(cell, seed: int, device):
-    """The statement and key of the cell's first job, as a run makes
-    them, without the program."""
-    n = 1 << int(cell.traffic["constraints_log2"])
-    if cell.config["driver"] == "snark_time":
-        return (instances.DiagonalInstance(seed, 0, n).statement(device),
-                instances.time_key(seed))
-    return instances.DummyInstance(seed, 0, n).statement(device), instances.fake_key(seed)
+def readings(cell, seed: int, device) -> dict:
+    """The control's mismatch counts on the cell's first job (its inputs
+    as a run makes them, by the driver's `inputs`, without the program)
+    and the reference's seconds."""
+    reference = spec.reference(cell.config)
+    st, key = spec.driver(cell.config).inputs(cell.traffic, seed, 0, device)
+    t0 = time.perf_counter()
+    good = correct.reference_proof(reference, st, key)
+    ref_s = time.perf_counter() - t0
+    bad = control_proof(reference, st, key)
+    return {"reference_s": ref_s,
+            "control": correct.mismatches(bad[0], good[0], bad[1], good[1])}
 
 
 def main(argv=None) -> int:
@@ -67,14 +73,8 @@ def main(argv=None) -> int:
     cell = spec.find_cell(args.workload)
     device = "cuda" if torch.cuda.is_available() else "cpu"
     for seed in args.seeds:
-        st, key = cell_inputs(cell, seed, device)
-        t0 = time.perf_counter()
-        good = correct.reference_proof(st, key)
-        ref_s = time.perf_counter() - t0
-        bad = control_proof(st, key)
-        counts = correct.mismatches(bad[0], good[0], bad[1], good[1])
         print(json.dumps({"workload": args.workload, "seed": seed, "device": device,
-                          "reference_s": ref_s, "control": counts}), flush=True)
+                          **readings(cell, seed, device)}), flush=True)
     return 0
 
 

@@ -1,5 +1,7 @@
-"""Deciding `correct`: the proofs the window produced against the plain
-reference's (`reference/snark.py`), on the same statement and key.
+"""Deciding `correct`: the proofs the window produced against those of
+the configuration's plain reference (`reference/<reference>.py`, named by
+its key `reference`), on the same statement and key, which the driver's
+`inputs` makes from the seed.
 
 Proofs are compared part by part (commitments and openings from the MSM
 pipeline; sumcheck messages and final foldings; evaluations) and byte by
@@ -10,9 +12,8 @@ byte.  Each number is a count of things that differ, and each limit is
 from __future__ import annotations
 
 import random
+from types import ModuleType
 from typing import Dict, List
-
-from .reference import snark as ref
 
 
 def mismatches(port_parts: dict, ref_parts: dict, port_bytes: bytes,
@@ -33,9 +34,10 @@ def sample(done: List[int], k: int, seed: int) -> List[int]:
     return sorted(random.Random(seed).sample(sorted(done), k))
 
 
-def reference_proof(statement, key):
-    p = ref.prove(statement, key)
-    return ref.parts(p), ref.proof_bytes(p)
+def reference_proof(reference: ModuleType, statement, key):
+    """The parts and bytes of `reference`'s proof of the statement."""
+    p = reference.prove(statement, key)
+    return reference.parts(p), reference.proof_bytes(p)
 
 
 def tally(rows: List[Dict[str, int]]) -> Dict[str, int]:

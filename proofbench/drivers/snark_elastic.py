@@ -12,6 +12,14 @@ from __future__ import annotations
 from proofbench import instances
 from proofbench.drivers import common
 
+
+def inputs(traffic: dict, seed: int, k: int, device):
+    """The reference's statement and key of job k: its relation and the
+    constant-base key's trapdoor."""
+    n = 1 << int(traffic["constraints_log2"])
+    return instances.DummyInstance(seed, k, n).statement(device), instances.fake_key(seed)
+
+
 class Driver:
     def __init__(self, config: dict, traffic: dict, seed: int, device):
         from gemini_tpu_torch.streaming import FakeCommitterKeyStream
@@ -26,27 +34,19 @@ class Driver:
             seed=instances.key_seed(seed),
             max_msm_buffer=1 << int(config["max_msm_buffer_log2"]), device=device)
 
-    def _instance(self, k: int):
-        return instances.DummyInstance(self.seed, k, self.n)
-
     def call(self, phase: str, k: int, previous):
         from gemini_tpu_torch.relation.stream import DummyR1csStream
         from gemini_tpu_torch.snark import Proof
 
         if phase != "prove":
             raise ValueError(f"snark_elastic has no phase {phase!r}")
-        stream = DummyR1csStream(self.n, self._instance(k).e, device=self.device)
+        stream = DummyR1csStream(self.n, instances.DummyInstance(self.seed, k, self.n).e,
+                                 device=self.device)
         return Proof.new_elastic(stream, self.fake, block_size=self.block,
                                  threshold=self.threshold)
 
     parts = staticmethod(common.parts)
     proof_bytes = staticmethod(common.proof_bytes)
-
-    def statement(self, k: int, device):
-        return self._instance(k).statement(device)
-
-    def key(self):
-        return instances.fake_key(self.seed)
 
     def release(self) -> None:
         self.fake = None

@@ -8,27 +8,42 @@ job k proves instance k mod m and verifies the proof."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from proofbench import instances
 from proofbench.drivers import common
+
+
+@functools.lru_cache(maxsize=4)
+def _diagonal(seed: int, index: int, n: int) -> instances.DiagonalInstance:
+    """Instance `index` of the seed, made once for set-up and the check."""
+    return instances.DiagonalInstance(seed, index, n)
+
+
+def inputs(traffic: dict, seed: int, k: int, device):
+    """The reference's statement and key of job k: instance k mod m and
+    the trapdoor of the key that set-up makes."""
+    n = 1 << int(traffic["constraints_log2"])
+    inst = _diagonal(seed, k % int(traffic["instances"]), n)
+    return inst.statement(device), instances.time_key(seed)
+
 
 class Driver:
     def __init__(self, config: dict, traffic: dict, seed: int, device):
         from gemini_tpu_torch.kzg.commit import CommitterKey, VerifierKey
         from gemini_tpu_torch.relation.r1cs import R1cs, SparseMatrix
 
-        self.seed = seed
-        self.n = n = 1 << int(traffic["constraints_log2"])
-        self.instances = [instances.DiagonalInstance(seed, i, n)
-                          for i in range(int(traffic["instances"]))]
+        n = 1 << int(traffic["constraints_log2"])
+        insts = [_diagonal(seed, i, n) for i in range(int(traffic["instances"]))]
         idx = np.arange(n, dtype=np.int32)
 
         def diag(vals):
             return SparseMatrix(n, n, idx, idx, vals, device=device)
 
         self.r1cs = [R1cs(diag(x.a), diag(x.b), diag(x.c), z_int=x.z,
-                          x_int=x.z[:1], device=device) for x in self.instances]
+                          x_int=x.z[:1], device=device) for x in insts]
         self.ck = CommitterKey.new(max_degree=n,
                                    max_eval_points=int(config["max_eval_points"]),
                                    seed=instances.key_seed(seed), device=device)
@@ -52,12 +67,6 @@ class Driver:
 
     def tamper_rejected(self, proof, k: int) -> bool:
         return common.tamper_rejected(proof, self._r1cs(k), self.vk)
-
-    def statement(self, k: int, device):
-        return self.instances[k % len(self.instances)].statement(device)
-
-    def key(self):
-        return instances.time_key(self.seed)
 
     def release(self) -> None:
         self.r1cs = self.ck = self.vk = None

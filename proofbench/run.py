@@ -9,10 +9,12 @@ none starts after the deadline.  With --trace 0 the result carries the
 cell's end-to-end metrics; with --trace 1 its per-layer metrics, from a
 first prove under torch.profiler and the program's spans and counters
 over the window that follows.  Then the proofs drawn for the check are
-worked out again by the plain reference (`reference/`) and compared
-byte for byte; each number compared is printed beside its limit, as the
-last lines of standard error and under "checks", the last key of the
-result, which is the last line of standard output.
+worked out again by the configuration's plain reference
+(`reference/<reference>.py`), from the inputs that the driver's `inputs`
+makes, and compared byte for byte; each number compared is printed
+beside its limit, as the last lines of standard error and under
+"checks", the last key of the result, which is the last line of
+standard output.
 """
 
 import time
@@ -107,10 +109,11 @@ def _trace_window(drv, phases, loop, seconds, sync, cuda):
     return win, first, trace
 
 
-def _check(drv, traffic, jobs, failed: int, seed: int, device: str):
+def _check(drv, inputs, reference, traffic, jobs, failed: int, seed: int, device: str):
     """A sample of the finished proofs, drawn from the seed, against the
-    reference; the verifier's answer to a tampered proof.  Frees the
-    program's state (`drv.release`) before the reference runs."""
+    reference's proofs of `inputs(traffic, seed, k, device)`; the
+    verifier's answer to a tampered proof.  Frees the program's state
+    (`drv.release`) before the reference runs."""
     import torch
 
     done = {j.index: j for j in jobs if j.error is None}
@@ -124,15 +127,14 @@ def _check(drv, traffic, jobs, failed: int, seed: int, device: str):
         tamper_accepted = int(not drv.tamper_rejected(done[picked[0]].output, picked[0]))
     for j in jobs:
         j.output = None
-    statements = {k: drv.statement(k, device) for k in picked}
-    key = drv.key()
     drv.release()
     if device == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     rows = []
     for k in picked:
-        ref_parts, ref_bytes = correct.reference_proof(statements.pop(k), key)
+        ref_parts, ref_bytes = correct.reference_proof(
+            reference, *inputs(traffic, seed, k, device))
         port_parts, port_bytes = port[k]
         rows.append(correct.mismatches(port_parts, ref_parts, port_bytes, ref_bytes))
     ref_s = time.perf_counter() - t_ref
@@ -158,9 +160,11 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     phases = tuple(cell.traffic["phases"])
     loop = spec.loop(cell.traffic)
+    reference = spec.reference(cell.config)
+    driver = spec.driver(cell.config)
     readers = spec.readers(cell.per_layer if trace else cell.end_to_end)
     t_setup = time.perf_counter()
-    drv = spec.driver(cell.config).setup(cell.config, cell.traffic, seed, device)
+    drv = driver.setup(cell.config, cell.traffic, seed, device)
     t_warm = time.perf_counter()
     warm = run_job(-1, phases, drv.call, sync)
     _log(f"set-up: start to driver {t_setup - t_start:.3f} s, driver "
@@ -194,8 +198,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
 
     jobs = ([first] if first is not None else []) + win.jobs
     failed = sum(1 for j in jobs if j.error is not None)
-    checks, picked, ref_s = _check(drv, cell.traffic, jobs, failed + (warm.error is not None),
-                                   seed, device)
+    checks, picked, ref_s = _check(drv, driver.inputs, reference, cell.traffic, jobs,
+                                   failed + (warm.error is not None), seed, device)
     ok = all(c["value"] <= c["max"] if "max" in c else c["value"] >= c["min"]
              for c in checks.values())
     for j in [warm] + jobs:

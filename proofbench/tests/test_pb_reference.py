@@ -80,10 +80,10 @@ def test_reference_equals_port_and_control_fails(kind, log2):
         inst, key = instances.DummyInstance(SEED, 0, n), instances.fake_key(SEED)
         proof, pbytes = _port_elastic_proof(inst, SEED)
     st = inst.statement("cpu")
-    good = correct.reference_proof(st, key)
+    good = correct.reference_proof(ref, st, key)
     counts = correct.mismatches(common.parts(proof), good[0], pbytes, good[1])
     assert counts == {"commitments": 0, "sumchecks": 0, "evaluations": 0, "bytes": 0}
-    bad = control.control_proof(st, key)
+    bad = control.control_proof(ref, st, key)
     fails = correct.mismatches(bad[0], good[0], bad[1], good[1])
     assert fails["commitments"] > 0 and fails["bytes"] > 0
 
@@ -96,7 +96,7 @@ def test_perturbed_arithmetic_fails(monkeypatch):
     proof, pbytes = _port_time_proof(inst, SEED)
     total = fr.total
     monkeypatch.setattr(fr, "total", lambda a: (total(a) - 1) % fr.R)
-    bad = correct.reference_proof(inst.statement("cpu"), key)
+    bad = correct.reference_proof(ref, inst.statement("cpu"), key)
     from proofbench.drivers import common
 
     counts = correct.mismatches(common.parts(proof), bad[0], pbytes, bad[1])
